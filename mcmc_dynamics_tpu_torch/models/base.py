@@ -1,0 +1,459 @@
+"""Model base class: host shell compiling data + parameters into a batched lnprob.
+
+Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (the subset the fixed-centre
+ModelFit path needs).  Observables are converted to internal units on the host
+in float64 and then placed on the model's device in its working dtype.  A
+batched lnprob maps a (W, K) walker block to (W,); the sampler runs it on
+half-ensembles.  Checkpoints are ``.npz`` files with the reference's keys, so
+the JAX package reads the chains this package writes.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import pathlib
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+import mcmc_dynamics_tpu
+from mcmc_dynamics_tpu import units as u
+from mcmc_dynamics_tpu.parameters import Parameters
+from mcmc_dynamics_tpu.utils.coordinates import get_amplitude_and_angle, xy_offset_rad
+from mcmc_dynamics_tpu.utils.data import DataReader
+from mcmc_dynamics_tpu.utils.table import Table
+
+from .. import default_dtype, resolve_device
+from ..expressions import compile_torch
+from ..parameters import CompiledParameters
+from ..sampler.stretch import (EnsembleState, check_move, init_state,
+                               make_generator, run_ensemble)
+
+logger = logging.getLogger(__name__)
+
+# the reference's bundled parameter files (model.json, ...)
+_CONFIG_DIR = pathlib.Path(mcmc_dynamics_tpu.__file__).resolve().parent / "config"
+
+
+class Runner:
+    """Base class of the port's models.
+
+    Subclasses declare ``MODEL_PARAMETERS``, ``OBSERVABLES`` (column -> unit
+    string) and ``INTERNAL_UNITS`` (parameter -> unit of the likelihood), and
+    implement ``lnlike_terms(p, data)`` on a walker batch: ``p`` values are
+    (w, 1) columns or floats, ``data`` columns (N,), the result (w, N).
+    """
+
+    MODEL_PARAMETERS: list = []
+    OBSERVABLES: dict = {"v": "km/s", "verr": "km/s"}
+    INTERNAL_UNITS: dict = {}
+    parameters_file: Optional[str] = None
+
+    # observables converted to these units before they reach the device
+    _OBSERVABLE_INTERNAL = {"v": "km/s", "verr": "km/s", "ra": "rad", "dec": "rad"}
+
+    # walkers per slice of the generic batched lnprob (bounds its (w, N) temporaries)
+    lnprob_chunk = 64
+
+    def __init__(self, data, parameters: Optional[Parameters] = None,
+                 seed: int = 123, background=None, device="cuda", dtype=None):
+        if background is not None:
+            raise NotImplementedError(
+                "Background mixtures are not ported to torch yet "
+                "(ROADMAP.md queue 1, item 9).")
+        self.device = resolve_device(device)
+        self.dtype = default_dtype(self.device) if dtype is None else dtype
+        self.seed = seed
+
+        if not isinstance(data, DataReader):
+            raise TypeError("'data' must be a DataReader instance.")
+        self.data = data
+        if ("ra" in self.OBSERVABLES or "dec" in self.OBSERVABLES) \
+                and not data.has_coordinates:
+            raise IOError("Missing WCS coordinates of observed data.")
+
+        self._data_arrays: Dict[str, torch.Tensor] = {}
+        self._host_arrays: Dict[str, np.ndarray] = {}
+        for name, unit in self.OBSERVABLES.items():
+            if name not in data.data:
+                raise IOError(f"Input data missing required column <{name}>")
+            col = data.data[name]
+            if isinstance(col, u.Quantity):
+                if col.unit.is_unity() and not u.parse_unit(unit).is_unity():
+                    logger.warning("Missing units for <%s> values. Assuming %s.",
+                                   name, unit)
+                    values = np.asarray(col.value, dtype=np.float64)
+                else:
+                    values = col.to(u.parse_unit(unit)).value.astype(np.float64)
+            else:
+                values = np.asarray(col, dtype=np.float64)
+            internal = self._OBSERVABLE_INTERNAL.get(name)
+            if internal is not None:
+                values = values * u.parse_unit(unit).conversion_factor(
+                    u.parse_unit(internal))
+            self._host_arrays[name] = values
+            self._data_arrays[name] = self._to_device(values)
+
+        if parameters is None:
+            parameters = self.default_parameters()
+        if not isinstance(parameters, Parameters):
+            raise TypeError("'parameters' must be a Parameters instance.")
+        missing = set(self.MODEL_PARAMETERS).difference(parameters)
+        if missing:
+            raise IOError(f"Missing required parameter(s): '{missing}'")
+        unused = set(parameters).difference(self.MODEL_PARAMETERS)
+        if unused:
+            logger.warning("Superfluous parameter(s) provided: '%s'", unused)
+        if parameters.rng_seed is None:
+            parameters.reseed(seed)
+        self.parameters = parameters
+
+        self._compiled: Optional[CompiledParameters] = None
+        self._compiled_fp = None
+        self._lnprob_batched_cache = None
+
+    def _to_device(self, values) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.float64), dtype=self.dtype,
+                               device=self.device)
+
+    # ------------------------------------------------------------------ class helpers
+    @classmethod
+    def default_parameters(cls) -> Parameters:
+        if cls.parameters_file is None:
+            raise NotImplementedError
+        return Parameters().load(_CONFIG_DIR / cls.parameters_file)
+
+    # ------------------------------------------------------------------ properties
+    @property
+    def n_data(self) -> int:
+        return self.data.sample_size
+
+    @property
+    def compiled(self) -> CompiledParameters:
+        fp = self.parameters.fingerprint()
+        if self._compiled is None or fp != self._compiled_fp:
+            self._compiled = CompiledParameters(self.parameters, self.device,
+                                                self.dtype)
+            self._compiled_fp = fp
+        return self._compiled
+
+    @property
+    def fitted_parameters(self):
+        return self.compiled.free_names
+
+    @property
+    def n_fitted_parameters(self) -> int:
+        return self.compiled.n_free
+
+    # ------------------------------------------------------------------ batched pieces
+    def scaled_values(self, theta: torch.Tensor) -> Dict[str, object]:
+        """theta (W, K) in declared units -> every parameter in internal units."""
+        values = self.compiled.expand(theta)
+        factors = self.compiled.scale_factors(
+            {n: unit for n, unit in self.INTERNAL_UNITS.items() if n in values})
+        return {n: (v * factors[n] if n in factors else v) for n, v in values.items()}
+
+    def lnlike_terms(self, p, data):
+        return torch.zeros_like(data["v"])
+
+    def prepare_data(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Hook: precomputed columns that are static given the fixed parameters."""
+        return data
+
+    def build_lnprob_batched(self) -> Callable:
+        """Generic batched lnprob (W, K) -> (W,): expand, ``lnlike_terms``,
+        masked sum, in slices of ``lnprob_chunk`` walkers.  Plain torch: the
+        reference leaves this path to XLA."""
+        compiled = self.compiled
+        data = self.prepare_data(dict(self._data_arrays))
+
+        def one(thetas):
+            lp = compiled.lnprior(thetas)
+            p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
+                 for n, v in self.scaled_values(thetas).items()}
+            ll = masked_sum(self.lnlike_terms(p, data), data)
+            return torch.where(torch.isfinite(lp), lp + ll,
+                               torch.full_like(lp, -math.inf))
+
+        def batched(thetas):
+            return torch.cat([one(t) for t in torch.split(thetas, self.lnprob_chunk)])
+
+        return batched
+
+    def batched_lnprob(self) -> Callable:
+        """The batched lnprob the sampler runs: ``build_lnprob_batched``,
+        rebuilt only when the parameters or the tier choice
+        (``MCMC_TPU_LNPROB``) change.  Building it is the set-up cost of a
+        tier (the tensor tier's tables); later calls return the same one."""
+        _ = self.compiled  # refresh fingerprint
+        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"))
+        cached = self._lnprob_batched_cache
+        if cached is None or cached[0] != key:
+            cached = (key, self.build_lnprob_batched())
+            self._lnprob_batched_cache = cached
+        return cached[1]
+
+    def _validated_initials(self, pos, n_walkers: int) -> np.ndarray:
+        """Draw (if needed) and validate (W, K) starting positions: right
+        shape and a finite lnprior for every walker."""
+        if pos is None:
+            pos = self.get_initials(n_walkers)
+        pos = np.asarray(pos, dtype=np.float64)
+        if pos.shape != (n_walkers, self.n_fitted_parameters):
+            raise ValueError(
+                f"Array with starting values has invalid shape {pos.shape}; "
+                f"expected {(n_walkers, self.n_fitted_parameters)}.")
+        lp = self.compiled.lnprior(self._to_device(pos))
+        bad = ~np.isfinite(lp.cpu().numpy())
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(f"Invalid initial guesses for walker {i}: "
+                             f"{self.fitted_parameters}={pos[i]}")
+        return pos
+
+    def center_is_fixed(self) -> bool:
+        """True when the cluster centre is not sampled."""
+        for name in ("ra_center", "dec_center"):
+            if name not in self.parameters:
+                return False
+            par = self.parameters[name]
+            if not par.fixed or par.expr is not None:
+                return False
+        return True
+
+    def fixed_center_offsets(self):
+        """Host float64 (dx, dy) offsets in radians for the fixed centre."""
+        ra_c = self.parameters["ra_center"].quantity.to(u.rad).value
+        dec_c = self.parameters["dec_center"].quantity.to(u.rad).value
+        return xy_offset_rad(self._host_arrays["ra"], self._host_arrays["dec"],
+                             float(ra_c), float(dec_c), xp=np)
+
+    def get_initials(self, n_walkers: int) -> np.ndarray:
+        return self.compiled.sample_initials(n_walkers)
+
+    def _sufficient_s_max(self) -> float:
+        """Upper grid edge in s = sigma_max^2 for the table tiers: from the
+        ``sigma_max`` prior bound when finite, else 1e6, which truncates the
+        unbounded prior at 1000 km/s (announced, as in the reference)."""
+        sigma_hi = self.parameters["sigma_max"].max
+        if np.isfinite(sigma_hi):
+            return float(min(1e8, max(1e4, (2.0 * float(sigma_hi)) ** 2)))
+        logger.warning(
+            "sigma_max has no finite upper bound; the table tier truncates the "
+            "prior at sigma_max = 1000 km/s (walkers beyond get -inf). Set a "
+            "finite max on 'sigma_max', or set MCMC_TPU_LNPROB=direct to keep "
+            "the exact unbounded prior.")
+        return 1.0e6
+
+    # ------------------------------------------------------------------ fitting
+    def __call__(self, n_walkers: int = 100, n_steps: int = 500, n_burn: int = 100,
+                 n_out: Optional[int] = None, pos=None, a: float = 2.0,
+                 thin: int = 1, move: str = "stretch", seed: Optional[int] = None,
+                 plot: bool = False, prefix: Optional[str] = "sampler",
+                 state: Optional[EnsembleState] = None) -> "SamplerResult":
+        """Run the MCMC analysis; returns a :class:`SamplerResult`.
+
+        The reference's signature (``n_burn`` is accepted and not used while
+        sampling).  With ``n_out`` the run goes in chunks of ``n_out`` steps
+        and, with a ``prefix``, checkpoints ``{prefix}_chain.npz`` after each.
+        ``state=`` (e.g. from :meth:`load_state`) continues a run bit for bit.
+        """
+        del n_burn
+        check_move(move)
+        if plot:
+            raise NotImplementedError(
+                "Plotting is not ported to torch yet (ROADMAP.md); run with "
+                "plot=False and plot the returned chain.")
+        if n_steps <= 0:
+            raise ValueError("n_steps must be positive.")
+        lnprob = self.batched_lnprob()
+
+        if state is None:
+            pos = self._validated_initials(pos, n_walkers)
+            gen = make_generator(self.seed if seed is None else seed, self.device)
+            state = init_state(lnprob, self._to_device(pos), gen)
+
+        chain_parts, lnp_parts = [], []
+        chunk = n_out if n_out else n_steps
+        done = 0
+        accepted0 = state.accepted.clone()
+        step0 = state.step
+        while done < n_steps:
+            steps = min(chunk, n_steps - done)
+            result = run_ensemble(lnprob, state, n_steps=steps, a=a, thin=thin)
+            chain_parts.append(result.chain.cpu().numpy())
+            lnp_parts.append(result.log_prob.cpu().numpy())
+            state = result.final
+            done += steps
+            if n_out:
+                logger.info("step %5d  <lnP> = %12.5e", done,
+                            float(lnp_parts[-1][:, -1].mean()))
+                if prefix is not None:
+                    self.save_current_status_arrays(
+                        np.concatenate(chain_parts, axis=1),
+                        np.concatenate(lnp_parts, axis=1), state, prefix=prefix)
+
+        n_done = max(state.step - step0, 1)
+        acceptance = ((state.accepted - accepted0).cpu().numpy() / n_done)
+        return SamplerResult(chain=np.concatenate(chain_parts, axis=1),
+                             lnprobability=np.concatenate(lnp_parts, axis=1),
+                             final_state=state, acceptance_fraction=acceptance)
+
+    # ------------------------------------------------------------------ persistence
+    @staticmethod
+    def save_current_status_arrays(chain, lnprob, state: EnsembleState,
+                                   prefix: str = "sampler"):
+        """``{prefix}_chain.npz`` with the reference's keys; ``key`` holds the
+        torch generator state and ``key_impl`` is ``"torch"``."""
+        np.savez(f"{prefix}_chain.npz",
+                 chain=np.asarray(chain), lnprob=np.asarray(lnprob),
+                 key=state.generator.get_state().numpy(),
+                 key_impl=np.asarray("torch"),
+                 coords=state.coords.cpu().numpy(),
+                 log_prob=state.log_prob.cpu().numpy(),
+                 accepted=state.accepted.cpu().numpy(),
+                 step=np.asarray(state.step, dtype=np.int32))
+
+    def load_state(self, filename: str) -> EnsembleState:
+        """Resumable state (coords, in-run lnP, generator, counters) from a
+        checkpoint this package wrote; ``self(state=...)`` then continues the
+        run bit for bit.  A JAX checkpoint goes through
+        :func:`mcmc_dynamics_tpu_torch.convert.state_from_jax_checkpoint`."""
+        path = pathlib.Path(filename)
+        if path.suffix != ".npz":
+            path = path.with_suffix(".npz")
+        with np.load(path) as f:
+            impl = str(f["key_impl"]) if "key_impl" in f else "legacy"
+            if impl != "torch":
+                raise ValueError(
+                    f"{path} holds a {impl!r} PRNG key, not a torch generator "
+                    "state; convert it with convert.state_from_jax_checkpoint.")
+            gen = torch.Generator(device=self.device)
+            gen.set_state(torch.from_numpy(np.array(f["key"], dtype=np.uint8)))
+            return EnsembleState(
+                coords=self._to_device(f["coords"]),
+                log_prob=self._to_device(f["log_prob"]),
+                generator=gen,
+                accepted=torch.as_tensor(f["accepted"], dtype=torch.int32,
+                                         device=self.device),
+                step=int(f["step"]))
+
+    @staticmethod
+    def read_chain(filename: str) -> np.ndarray:
+        """The (W, S, K) chain of a ``.npz`` checkpoint."""
+        path = pathlib.Path(filename)
+        if path.suffix != ".npz":
+            path = path.with_suffix(".npz")
+        with np.load(path) as f:
+            return f["chain"]
+
+    # ------------------------------------------------------------------ posterior
+    def convert_to_parameters(self, chain, n_burn: int) -> Dict[str, np.ndarray]:
+        """Chain -> flattened posterior samples of every parameter (free,
+        fixed and expression-derived)."""
+        chain = np.asarray(chain)
+        n_samples = chain.shape[0] * (chain.shape[1] - n_burn)
+        pars: Dict[str, np.ndarray] = {}
+        for i, name in enumerate(self.fitted_parameters):
+            pars[name] = chain[:, n_burn:, i].reshape(-1)
+        for name, par in self.parameters.items():
+            if name in pars or par.expr is not None:
+                continue
+            pars[name] = np.full(n_samples, par.value)
+        for name, par in self.parameters.items():
+            if par.expr is None or name in pars:
+                continue
+            fn = compile_torch(par.expr)
+            pars[name] = np.asarray(fn({k: torch.as_tensor(v)
+                                        for k, v in pars.items()}))
+        return pars
+
+    def compute_percentiles(self, chain, n_burn: int, pct=None) -> np.ndarray:
+        if pct is None:
+            pct = [16, 50, 84]
+        samples = np.asarray(chain)[:, n_burn:, :].reshape(-1, self.n_fitted_parameters)
+        return np.percentile(samples, pct, axis=0)
+
+    def compute_bestfit_values(self, chain, n_burn: int) -> Table:
+        """Median and upper/lower 1-sigma errors per fitted parameter (rows
+        median/uperr/loerr); sets each parameter's value to its median."""
+        pct = self.compute_percentiles(chain, n_burn=n_burn, pct=[16, 50, 84])
+        out = Table({"value": np.array(["median", "uperr", "loerr"], dtype=object)})
+        for i, name in enumerate(self.fitted_parameters):
+            self.parameters[name].value = pct[1, i]
+            out[name] = u.Quantity(
+                np.array([pct[1, i], pct[2, i] - pct[1, i], pct[1, i] - pct[0, i]]),
+                self.parameters[name].unit)
+        return out
+
+    def compute_theta_vmax(self, chain, n_burn: int, return_samples: bool = False):
+        """Posterior rotation amplitude and angle (circular statistics)."""
+        pars = self.convert_to_parameters(chain=chain, n_burn=n_burn)
+        results, v_max, theta = get_amplitude_and_angle(pars,
+                                                        return_samples=return_samples)
+        if results is None:
+            logger.error("Could not recover rotation-field parameters in "
+                         "%s.compute_theta_vmax().", type(self).__name__)
+            return None
+        results["v_max"] = u.Quantity(results.value("v_max"),
+                                      self.parameters["v_maxx"].unit)
+        if return_samples:
+            return results, v_max, theta, pars.get("sigma_max")
+        return results
+
+
+class SamplerResult:
+    """emcee-style result: ``.chain`` (walkers, steps, params) and
+    ``.lnprobability`` (walkers, steps) as NumPy arrays, plus the resumable
+    ensemble state."""
+
+    def __init__(self, chain, lnprobability, final_state, acceptance_fraction):
+        self.chain = chain
+        self.lnprobability = lnprobability
+        self.final_state = final_state
+        self.acceptance_fraction = acceptance_fraction
+
+    @property
+    def iteration(self) -> int:
+        return self.chain.shape[1]
+
+    def get_last_sample(self):
+        return self.chain[:, -1, :]
+
+    @property
+    def flatchain(self):
+        """(walkers * steps, ndim), the emcee v2 attribute."""
+        return self.chain.reshape(-1, self.chain.shape[2])
+
+    @property
+    def flatlnprobability(self):
+        return self.lnprobability.reshape(-1)
+
+    def get_chain(self, flat: bool = False, thin: int = 1, discard: int = 0):
+        """Chain in the emcee v3 layout (steps, walkers, ndim)."""
+        v = np.swapaxes(self.chain, 0, 1)[discard + thin - 1::thin]
+        return v.reshape(-1, v.shape[2]) if flat else v
+
+    def get_log_prob(self, flat: bool = False, thin: int = 1, discard: int = 0):
+        v = np.swapaxes(self.lnprobability, 0, 1)[discard + thin - 1::thin]
+        return v.reshape(-1) if flat else v
+
+
+# --------------------------------------------------------------------------- terms
+def gaussian_lnlike_terms(v, verr, v_los, sigma_los):
+    """Per-star Gaussian terms: -1/2 ln(2 pi n) - 1/2 (v - v_los)^2 / n,
+    n = verr^2 + sigma^2."""
+    norm = verr * verr + sigma_los * sigma_los
+    return -0.5 * (torch.log(2.0 * math.pi * norm) + (v - v_los) ** 2 / norm)
+
+
+def masked_sum(terms, data):
+    """Sum per-star terms over the last axis, honouring an optional mask with
+    a select (a -inf term on a masked lane must not become NaN)."""
+    mask = data.get("mask")
+    if mask is not None:
+        return torch.where(mask > 0, terms, torch.zeros_like(terms)).sum(dim=-1)
+    return terms.sum(dim=-1)

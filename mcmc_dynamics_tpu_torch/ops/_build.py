@@ -1,0 +1,134 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Every ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ONE shared library with a plain C interface, and loaded with
+``ctypes``.  No PyTorch header is included, so a build takes seconds.  The
+library lands in ``_build/<hash of the sources and flags>/`` inside this
+package (a directory that ``.gitignore`` lists), so an edited source rebuilds
+and an unchanged one is loaded as it is.
+
+A kernel is reached through a :class:`Kernel`: it calls the C launcher on the
+caller's stream, raises on a non-zero CUDA error code, and counts its
+launches, so a run can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+__all__ = ["Kernel", "BuildError", "build_library", "find_nvcc"]
+
+_PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
+_CSRC_DIR = _PKG_DIR / "csrc"
+_BUILD_ROOT = _PKG_DIR / "_build"
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a source; the message carries its stderr."""
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise BuildError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                     "toolkit is needed to build the port's kernels.")
+
+
+class BuildInfo:
+    """Where the library is, how long its build took (0 when it was already
+    built) and what nvcc printed (ptxas register and shared-memory use)."""
+
+    def __init__(self, path: pathlib.Path, seconds: float, log: str):
+        self.path = path
+        self.seconds = seconds
+        self.log = log
+
+
+@functools.cache
+def build_library() -> BuildInfo:
+    """Compile ``csrc/*.cu`` into one ``.so`` (once per source hash)."""
+    sources = sorted(_CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise BuildError(f"no CUDA sources under {_CSRC_DIR}")
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = _BUILD_ROOT / digest.hexdigest()[:16]
+    lib = out_dir / "libmcmc_kernels.so"
+    log_file = out_dir / "nvcc.log"
+    if lib.exists():
+        log = log_file.read_text() if log_file.exists() else ""
+        return BuildInfo(lib, 0.0, log)
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmd = [find_nvcc(), *_NVCC_FLAGS]
+    t0 = time.perf_counter()
+    # build to a temporary name and rename: a process that finds the final
+    # name never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        proc = subprocess.run(cmd + ["-o", tmp] + [str(s) for s in sources],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                             f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    log = proc.stderr + proc.stdout
+    log_file.write_text(log)
+    return BuildInfo(lib, time.perf_counter() - t0, log)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_library().path))
+
+
+class Kernel:
+    """One C launcher of the library: ``int name(..., void* stream)``.
+
+    ``argtypes`` lists the ctypes types of every argument but the trailing
+    stream; every pointer is ``c_void_p`` so ctypes never truncates it.
+    ``launches`` counts the calls that launched the kernel.
+    """
+
+    def __init__(self, symbol: str, argtypes):
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.launches = 0
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(_library(), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, *args, stream: int) -> None:
+        err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA launch of {self.symbol} failed with "
+                               f"cudaError {err}")
+        self.launches += 1
