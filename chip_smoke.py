@@ -1,30 +1,44 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the root of the repository, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase (what the check runs)
+    python3 chip_smoke.py --profile    # also trace each main path with torch.profiler
 
 It builds the port's CUDA kernels from ``mcmc_dynamics_tpu_torch/csrc``,
-checks each against its plain torch version at the shapes the main path gives
-it, then samples the fixed-centre ModelFit end to end through both likelihood
-tiers, and fails (non-zero exit) if any phase does:
+checks each against its plain torch version at the shapes the main paths give
+it, then samples each main path end to end through the entry points a user
+calls, and fails (non-zero exit) if any phase does:
 
 1. environment: torch, CUDA, the card, ``nvidia-smi``, ``nvcc`` and the build;
-2. kernel 1 (direct walker x star likelihood) against its float64 plain
+2. kernel 1 (fixed-centre walker x star likelihood) against its float64 plain
    version at 16384 walkers x 1e4 stars and at 32 walkers x 6284 stars;
 3. kernel 2 (tensor-Chebyshev tables) against its float64 plain version at
    16384 walkers on the tables of a 1e5-star mock catalog;
 4. main path A, the omega Cen fixed-centre recipe (``example/``): 64 walkers x
    600 steps through kernel 1, goldens, profiles, and a bitwise resume;
 5. main path B, the tensor tier: 1e5-star mock, 1024 walkers x 200 steps
-   through kernel 2, recovery of the truth.
+   through kernel 2, recovery of the truth;
+6. kernel 3 (free-centre walker x star likelihood), 7. kernel 4 (ConstantFit
+   + fixed background) and 8. kernel 5 (ConstantFitGB density mixture) against
+   their float64 plain versions at 16384 walkers x 1e4 stars and at their
+   path's half-ensemble; 9. kernel 10 (SingleStars KDE) at 20480 targets x
+   8192 catalog stars and at a ragged catalog;
+10. main path C, the omega Cen free-centre ConstantFit recipe (generic tier,
+    plain torch): 64 walkers x 600 steps, goldens;
+11. main path D, free-centre ModelFit on the omega Cen catalog through kernel
+    3: 64 walkers x 600 steps, goldens, bitwise resume;
+12. main path E1, ConstantFitGB on a contaminated mock catalog (16384 members
+    + 4096 field stars) through kernel 5, recovery of the truth;
+13. main path E2, ConstantFit with a SingleStars background on the same
+    catalog: kernel 10 at construction, kernel 4 while sampling.
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
-route, source, launch count on the main path, error and times; the last line
-is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
-prints no result.
+route, source, launch count on the main paths, error, times and bound; the
+last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+1 and prints no result.
 """
 
 from __future__ import annotations
@@ -42,12 +56,40 @@ import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parent
 RECIPE = REPO / "example" / "omega_cen_fixed.json"
+CENTER_RECIPE = REPO / "example" / "omega_cen_center.json"
 GOLDENS = REPO / "example" / "goldens" / "omega_cen_goldens.json"
 
 # the reference's validate-gate tolerances (bench.py: direct kernel, table tier)
 DIRECT_TOL = dict(rtol=2e-4, atol=5e-2)
 TENSOR_TOL = dict(rtol=2e-4, atol=0.5)
+# kernel 10: a log-likelihood of order -5 per target; float32 sums up to 2048
+# terms per thread (relative rounding <= 2048 x 2^-24 = 1.2e-4 in the worst
+# case, ~1e-6 in practice) and rounds each exponent -(v_i - c_j)^2 / (2 n_i):
+# an absolute 1e-3 on the log is 8x the worst-case sum error
+BACKGROUND_TOL = dict(rtol=1e-5, atol=1e-3)
 CANONICAL = ["v_sys", "sigma_max", "a", "v_maxx", "v_maxy", "r_peak"]
+
+# the least time for a kernel's work on an H100 SXM at its 700 W limit
+# (NVIDIA's H100 data sheet): HBM3 at 3.35 TB/s, 67
+# TFLOP/s FP32 outside the tensor cores, and the special-function unit at 16
+# operations per clock per SM (CUDA programming guide, compute capability 9.0)
+# x 132 SMs x 1.98 GHz boost = 4.18e12 rsqrt/log/exp/sin per second
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# (FP32 flops, SFU operations) per (walker, star) or (target, catalog) pair,
+# counted from each kernel's source (an FMA is two flops)
+PAIR_COST = {"model_lnlike": (18, 3), "model_freecenter": (36, 3),
+             "constant_mixture": (17, 4), "constant_gb": (30, 7),
+             "background_lse": (10, 1)}
+
+
+def bound_ms(n_bytes, flops, sfu):
+    """(least ms, what bounds it): bytes moved once over the memory rate
+    against the operations over their peak rates."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -159,11 +201,16 @@ def phase_direct_kernel(device, shapes=((16384, 10_000, 240), (32, 6284, 116))):
         ms = cuda_ms(lambda: model_lnlike_batched(*a32))
         plain_ms = cuda_ms(lambda: model_lnlike_reference(*a32), reps=10)
         n = n_stars + n_pad
+        flops, sfu = PAIR_COST["model_lnlike"]
+        pairs = n_walkers * n_stars
+        b_ms, b_by = bound_ms(4 * (7 * n_walkers + 6 * n), flops * pairs, sfu * pairs)
         print(f"phase 2 kernel model_lnlike W={n_walkers} N={n} "
               f"(masked tail {n_pad}): max_abs_err {err:.4g} vs float64 plain "
               f"(rtol {DIRECT_TOL['rtol']}, atol {DIRECT_TOL['atol']}) | kernel "
-              f"{ms:.4f} ms | plain f32 {plain_ms:.4f} ms")
-        rows.append(dict(W=n_walkers, N=n, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+              f"{ms:.4f} ms | plain f32 {plain_ms:.4f} ms | bound {b_ms:.4f} ms "
+              f"({b_by})")
+        rows.append(dict(W=n_walkers, N=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -231,36 +278,50 @@ def phase_tensor_kernel(device, fit, n_walkers=16384):
     exact = torch.cat([model_lnlike_reference(p, *cols) for p in torch.split(probe, 32)])
     tab_err = compare("tensor tables vs exact star sum", stats64.lnlike(probe),
                       exact, **TENSOR_TOL)
+    # the contraction dominates: 2 flops per table element and walker; the
+    # tables, params and output are each moved once
+    k, n_ch = stats.table.shape
+    n_bytes = 4 * (k * n_ch + stats.u_s.numel() + stats.u_a.numel() + 7 * n_walkers)
+    b_ms, b_by = bound_ms(n_bytes, 2.0 * k * n_ch * n_walkers, 0)
     print(f"phase 3 kernel model_tensor W={n_walkers} N={fit.n_data} table "
           f"{tuple(stats.table.shape)} ranks {tuple(stats.u_s.shape)}x"
           f"{tuple(stats.u_a.shape)} Dr {stats.n_r} (host build {build_s:.2f} s): "
           f"max_abs_err {err:.4g} vs float64 plain (rtol {TENSOR_TOL['rtol']}, "
           f"atol {TENSOR_TOL['atol']}) | tables vs exact star sum {tab_err:.4g} "
-          f"| kernel {ms:.4f} ms | plain f32 {plain_ms:.4f} ms")
-    return dict(W=n_walkers, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"| kernel {ms:.4f} ms | plain f32 {plain_ms:.4f} ms | bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return dict(W=n_walkers, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
-def load_recipe(device):
-    """The fixed-centre omega Cen recipe as ``cli/run.py`` sets it up: the
-    bundled catalog (v_sys subtracted) and the config's parameter specs."""
+def read_catalog(cfg):
+    """A recipe's bundled catalog (v_sys subtracted), read with numpy."""
     from mcmc_dynamics_tpu_torch import DataReader, units as u
-    from mcmc_dynamics_tpu_torch.models import ModelFit
 
-    cfg = json.loads(RECIPE.read_text())
     path = REPO / cfg["data"]["file"]
     header = path.read_text().splitlines()[0].split(",")
     table = np.loadtxt(path, delimiter=",", skiprows=1)
     col = {name: table[:, i] for i, name in enumerate(header)}
     v_sys = float(cfg["data"].get("v_sys") or 0.0)
-    data = DataReader({"ra": u.Quantity(col["ra"], "deg"),
+    return DataReader({"ra": u.Quantity(col["ra"], "deg"),
                        "dec": u.Quantity(col["dec"], "deg"),
                        "v": u.Quantity(col["v"] - v_sys, "km/s"),
                        "verr": u.Quantity(col["verr"], "km/s")})
-    params = ModelFit.default_parameters()
+
+
+def load_recipe(device, recipe=RECIPE, model="ModelFit"):
+    """An omega Cen recipe as ``cli/run.py`` sets it up: the bundled catalog
+    and the config's parameter specs on ``model``'s parameter file."""
+    from mcmc_dynamics_tpu_torch import models
+
+    cfg = json.loads(recipe.read_text())
+    cls = getattr(models, model)
+    params = cls.default_parameters()
     for name, spec in cfg["parameters"].items():
         params[name].set(**spec)
     sampling = cfg["sampling"]
-    fit = ModelFit(data, parameters=params, seed=sampling["seed"], device=device)
+    fit = cls(read_catalog(cfg), parameters=params, seed=sampling["seed"],
+              device=device)
     return fit, sampling
 
 
@@ -276,34 +337,42 @@ def check_goldens(chain, n_burn, golden) -> dict:
     return values
 
 
-def phase_recipe(device, n_steps=None, n_extra=50):
-    """Main path A; returns (numbers, fit)."""
+def run_with_resume(label, fit, n_walkers, n_steps, n_out, n_extra=50):
+    """Sample ``n_steps`` with a checkpoint every ``n_out``, resume from the
+    checkpoint for ``n_extra`` more, and check that an uninterrupted run of
+    ``n_steps + n_extra`` is bitwise equal.  Returns (first run, seconds per
+    step of the uninterrupted run)."""
     import torch
 
-    fit, sampling = load_recipe(device)
-    if fit.lnprob_tier() != "direct":
-        raise AssertionError(f"recipe tier {fit.lnprob_tier()}, expected direct")
-    n_walkers = sampling["n_walkers"]
-    n_steps = n_steps or sampling["n_steps"]
-    n_out, n_burn = sampling["n_out"], sampling["n_burn"]
     pos = fit.get_initials(n_walkers)
     with tempfile.TemporaryDirectory() as tmp:
-        prefix = str(pathlib.Path(tmp) / "omega_cen_fixed")
+        prefix = str(pathlib.Path(tmp) / "checkpoint")
         run = fit(n_walkers=n_walkers, n_steps=n_steps, n_out=n_out, pos=pos,
                   prefix=prefix)
-        state = fit.load_state(prefix + "_chain.npz")
-        resumed = fit(state=state, n_steps=n_extra, prefix=None)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+        resumed = fit(state=fit.load_state(prefix + "_chain.npz"), n_steps=n_extra,
+                      prefix=None)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     whole = fit(n_walkers=n_walkers, n_steps=n_steps + n_extra, pos=pos, prefix=None)
-    whole_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     if not (np.array_equal(whole.chain[:, :n_steps], run.chain)
             and np.array_equal(whole.chain[:, n_steps:], resumed.chain)
             and np.array_equal(whole.lnprobability[:, n_steps:],
                                resumed.lnprobability)):
-        raise AssertionError("checkpoint resume is not bitwise equal to the "
-                             "uninterrupted run")
+        raise AssertionError(f"path {label}: checkpoint resume is not bitwise "
+                             "equal to the uninterrupted run")
+    return run, seconds / (n_steps + n_extra)
+
+
+def phase_recipe(device):
+    """Main path A; returns its numbers."""
+    fit, sampling = load_recipe(device)
+    if fit.lnprob_tier() != "direct":
+        raise AssertionError(f"recipe tier {fit.lnprob_tier()}, expected direct")
+    n_walkers, n_steps = sampling["n_walkers"], sampling["n_steps"]
+    n_burn = sampling["n_burn"]
+    run, s_per_step = run_with_resume("A", fit, n_walkers, n_steps, sampling["n_out"])
 
     golden = json.loads(GOLDENS.read_text())["omega_cen_fixed"]
     values = check_goldens(run.chain, n_burn, golden)
@@ -319,8 +388,7 @@ def phase_recipe(device, n_steps=None, n_extra=50):
         raise AssertionError("compute_bestfit_values not finite")
     acc = float(np.mean(run.acceptance_fraction))
     return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps,
-                s_per_step=whole_s / (n_steps + n_extra),
-                acceptance=acc, medians=values)
+                s_per_step=s_per_step, acceptance=acc, medians=values)
 
 
 def phase_tensor_path(device, fit, truth, n_walkers=1024, n_steps=200):
@@ -355,10 +423,404 @@ def phase_tensor_path(device, fit, truth, n_walkers=1024, n_steps=200):
                 acceptance=float(np.mean(run.acceptance_fraction)), medians=med)
 
 
-# ----------------------------------------------------------------------------- main
-def main() -> int:
+# ----------------------------------------------------------------------------- slice 2
+def pair_kernel_phase(phase, name, run, plain, inputs, shapes, tol, rows_k, cols_k,
+                      split=True):
+    """A walker x star (or target x catalog) kernel against its float64
+    plain version at each (size, partner size, masked tail) of ``shapes``.
+
+    ``inputs(shape)`` gives (args32, kwargs, kwargs of the float64 plain
+    version, unmasked pair count); the float64 arguments are the float32
+    ones upcast, so both see the same inputs.  With ``split`` the float64
+    plain version runs on slices of 2048 of the first argument (walkers).
+    ``rows_k``/``cols_k``: the partner rows and per-item columns the kernel
+    reads (for the bound)."""
     import torch
 
+    rows = []
+    for shape in shapes:
+        a32, kw, kw64, pairs = inputs(shape)
+        a64 = [t.double() for t in a32]
+        got = run(*a32, **kw)
+        torch.cuda.synchronize()
+        if split:
+            ref = torch.cat([plain(p, *a64[1:], **kw64)
+                             for p in torch.split(a64[0], 2048)])
+        else:
+            ref = plain(*a64, **kw64)
+        label = f"{name} {shape[0]} x {shape[1] + shape[2]}"
+        err = compare(label, got, ref, **tol)
+        ms = cuda_ms(lambda: run(*a32, **kw))
+        plain_ms = cuda_ms(lambda: plain(*a32, **kw), reps=10)
+        flops, sfu = PAIR_COST[name]
+        n_items, n_partners = shape[0], shape[1] + shape[2]
+        b_ms, b_by = bound_ms(4 * ((cols_k + 1) * n_items + rows_k * n_partners),
+                              flops * pairs, sfu * pairs)
+        print(f"phase {phase} kernel {label} (masked or ragged tail {shape[2]}): "
+              f"max_abs_err {err:.4g} vs float64 plain (rtol {tol['rtol']}, atol "
+              f"{tol['atol']}) | kernel {ms:.4f} ms | plain f32 {plain_ms:.4f} ms "
+              f"| bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
+def _on(device, *arrays):
+    import torch
+
+    return [torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float32,
+                            device=device) for a in arrays]
+
+
+def _padded(n, n_pad, *cols):
+    """Star columns with a masked tail of zero padding, and the mask."""
+    out = []
+    for c in cols + (np.ones(n),):
+        full = np.zeros(n + n_pad)
+        full[:n] = c
+        out.append(full)
+    return out
+
+
+def freecenter_inputs(device):
+    """Kernel 3 at omega Cen's position: stars within ~6 arcmin, walkers
+    within ~1 arcmin of the reference centre and one 5 degrees off; walker 0
+    has sigma_max = 0 and walker 1 a = 0."""
+    def make(shape):
+        n_walkers, n_stars, n_pad = shape
+        rng = np.random.default_rng(n_walkers)
+        arcmin_per_rad = 10800.0 / math.pi
+        ra_c0, dec_c0 = math.radians(201.697), math.radians(-47.48)
+        ra = ra_c0 + 1.7e-3 * rng.normal(size=n_stars)
+        dec = dec_c0 + 1.7e-3 * rng.normal(size=n_stars)
+        ra0, dec0 = float(np.median(ra)), float(np.median(dec))
+        s0, c0 = math.sin(dec0), math.cos(dec0)
+        d = ra - ra0
+        pm = arcmin_per_rad * np.cos(dec) * np.cos(d)
+        qm = arcmin_per_rad * np.cos(dec) * np.sin(d)
+        sm = arcmin_per_rad * np.sin(dec)
+        stars = _padded(n_stars, n_pad, -qm, sm * c0 - pm * s0, pm, qm,
+                        sm * s0 + pm * c0, 10 * rng.normal(size=n_stars),
+                        rng.uniform(0.5, 2.0, n_stars) ** 2)
+        params = np.column_stack([
+            rng.uniform(-5, 5, n_walkers), rng.uniform(5, 30, n_walkers),
+            rng.uniform(0.5, 10, n_walkers), rng.uniform(-10, 10, n_walkers),
+            rng.uniform(-10, 10, n_walkers), rng.uniform(0.5, 10, n_walkers),
+            3e-4 * rng.normal(size=n_walkers), 3e-4 * rng.normal(size=n_walkers)])
+        params[0, 1] = 0.0
+        params[1, 2] = 0.0
+        params[-1, 6:] = math.radians(5.0), math.radians(-5.0)
+        kw = dict(s0=s0, c0=c0)
+        return _on(device, params, *stars), kw, kw, n_walkers * n_stars
+    return make
+
+
+def constant_inputs(device, gb):
+    """Kernels 4 and 5: a 1e4-star table of unit position vectors, Gaussian
+    velocities and errors; walker 0 has sigma_max = 0.  Kernel 4 adds the
+    membership logs and a Gaussian field's lnL; kernel 5 a density column
+    with one zero density (clamped to 1e-300, 0 in float32) and walkers 2
+    and 3 at f_back = 0, and holds the float64 plain version to the float32
+    normaliser clamp."""
+    import torch
+
+    def make(shape):
+        n_walkers, n_stars, n_pad = shape
+        rng = np.random.default_rng(n_walkers + 1)
+        phi = rng.uniform(-math.pi, math.pi, n_stars)
+        v = 10 * rng.normal(size=n_stars)
+        verr2 = rng.uniform(0.5, 2.0, n_stars) ** 2
+        params = np.column_stack([
+            rng.uniform(-5, 5, n_walkers), rng.uniform(5, 30, n_walkers),
+            rng.uniform(-10, 10, n_walkers), rng.uniform(-10, 10, n_walkers)])
+        params[0, 1] = 0.0
+        if gb:
+            density = np.maximum(10.0 ** rng.uniform(-1, 2, n_stars), 1e-300)
+            density[3] = 1e-300
+            extra = (density, np.log(density))
+            params = np.column_stack([
+                params, rng.normal(40, 5, n_walkers), rng.uniform(30, 70, n_walkers),
+                10.0 ** rng.uniform(-1, 1, n_walkers)])
+            params[2:4, 6] = 0.0
+            kw, kw64 = {}, dict(tiny=float(torch.finfo(torch.float32).tiny))
+        else:
+            pmember = rng.uniform(0.05, 0.95, n_stars)
+            lnb = -0.5 * (np.log(2 * math.pi * (verr2 + 2500.0))
+                          + (v - 40.0) ** 2 / (verr2 + 2500.0))
+            extra = (np.log(pmember), np.log1p(-pmember) + lnb)
+            kw, kw64 = {}, {}
+        stars = _padded(n_stars, n_pad, np.cos(phi), np.sin(phi), v, verr2, *extra)
+        args = _on(device, params, *stars)
+        return args, kw, kw64, n_walkers * n_stars
+    return make
+
+
+def constant_mixture_split(params, gx, gy, v, verr2, lgp, lgb, mask):
+    """Kernel 4's wrapper fed the precombined background branch (its
+    ``lg1mp + lnb`` is ``0 + lgb``)."""
+    from mcmc_dynamics_tpu_torch.ops import constant_mixture_lnlike_batched
+
+    return constant_mixture_lnlike_batched(params, gx, gy, v, verr2, lgp,
+                                           lgb.new_zeros(()), lgb, mask)
+
+
+def background_inputs(device):
+    """Kernel 10 on path E2's problem: (catalog, targets, errors) with
+    targets from a cluster + field mixture, errors as the members', a field
+    catalog of N(40, 50^2) draws and sigma_int = 0 (SingleStars' default)."""
+    def make(shape):
+        n_targets, n_catalog, _ = shape
+        rng = np.random.default_rng(n_catalog)
+        v = np.where(rng.random(n_targets) < 0.8, rng.normal(0, 12, n_targets),
+                     rng.normal(40, 50, n_targets))
+        verr = 1.2 * rng.lognormal(0.0, 0.5, n_targets)
+        args = _on(device, rng.normal(40, 50, n_catalog), v, verr)
+        return args, {}, {}, n_targets * n_catalog
+    return make
+
+
+def medians(chain, names, n_burn):
+    flat = chain[:, n_burn:, :].reshape(-1, chain.shape[-1])
+    return dict(zip(names, (float(x) for x in np.median(flat, axis=0))))
+
+
+def timed_run(fit, **kw):
+    """``fit(...)`` between two synchronisations: (result, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = fit(**kw)
+    torch.cuda.synchronize()
+    return run, time.perf_counter() - t0
+
+
+def check_band(label, values, golden):
+    for key, (lo, hi) in golden.items():
+        if not lo <= values[key] <= hi:
+            raise AssertionError(f"{label}: {key} = {values[key]:.5g} outside "
+                                 f"[{lo}, {hi}]")
+
+
+def phase_center_recipe(device):
+    """Main path C: example/omega_cen_center.json through ConstantFit's
+    generic tier (a sampled centre), medians in its golden bands."""
+    fit, sampling = load_recipe(device, CENTER_RECIPE, "ConstantFit")
+    if fit.lnprob_tier() != "generic":
+        raise AssertionError(f"path C tier {fit.lnprob_tier()}, expected generic")
+    n_walkers, n_steps = sampling["n_walkers"], sampling["n_steps"]
+    pos = fit.get_initials(n_walkers)
+    run, seconds = timed_run(fit, n_walkers=n_walkers, n_steps=n_steps, pos=pos,
+                             prefix=None)
+    values = medians(run.chain, fit.fitted_parameters, sampling["n_burn"])
+    check_band("path C", values, json.loads(GOLDENS.read_text())["omega_cen_center"])
+    return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps,
+                s_per_step=seconds / n_steps, evals_per_s=n_walkers * n_steps / seconds,
+                acceptance=float(np.mean(run.acceptance_fraction)), medians=values)
+
+
+# path D holds sigma_max to the fixed-centre band: a float64 CPU run of the
+# JAX package on the same set-up meets it, and misses the v_sys band (the
+# sampled centre shifts v_sys through the rotation field), so v_sys is left
+# out (chip_smoke_reference.py)
+FREECENTER_FIXED_KEYS = ("sigma_max",)
+
+
+def freecenter_fit(device):
+    """Path D's fit: the omega Cen catalog, the kinematic specs of
+    omega_cen_fixed.json and the centre specs of omega_cen_center.json, both
+    centre coordinates sampled."""
+    from mcmc_dynamics_tpu_torch.models import ModelFit
+
+    fixed = json.loads(RECIPE.read_text())
+    center = json.loads(CENTER_RECIPE.read_text())
+    params = ModelFit.default_parameters()
+    for name, spec in fixed["parameters"].items():
+        if name not in ("ra_center", "dec_center"):
+            params[name].set(**spec)
+    for name in ("ra_center", "dec_center"):
+        params[name].set(fixed=False, **center["parameters"][name])
+    sampling = fixed["sampling"]
+    fit = ModelFit(read_catalog(fixed), parameters=params, seed=sampling["seed"],
+                   device=device)
+    return fit, sampling
+
+
+def phase_freecenter_path(device):
+    """Main path D: the free-centre ModelFit through kernel 3, checkpointed
+    and resumed bit for bit."""
+    fit, sampling = freecenter_fit(device)
+    if fit.lnprob_tier() != "freecenter":
+        raise AssertionError(f"path D tier {fit.lnprob_tier()}, expected freecenter")
+    n_walkers, n_steps = sampling["n_walkers"], sampling["n_steps"]
+    run, s_per_step = run_with_resume("D", fit, n_walkers, n_steps, sampling["n_out"])
+    values = medians(run.chain, fit.fitted_parameters, sampling["n_burn"])
+    goldens = json.loads(GOLDENS.read_text())
+    check_band("path D", values, {k: v for k, v in goldens["omega_cen_center"].items()
+                                  if k in ("ra_center", "dec_center")})
+    check_band("path D", values, {k: goldens["omega_cen_fixed"][k]
+                                  for k in FREECENTER_FIXED_KEYS})
+    return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps,
+                s_per_step=s_per_step, evals_per_s=n_walkers / s_per_step,
+                acceptance=float(np.mean(run.acceptance_fraction)), medians=values)
+
+
+# path E: a contaminated catalog.  The truth and the bounds the fits are held
+# to; a float64 CPU run of the JAX package on the same catalog
+# (chip_smoke_reference.py) lands well inside them.
+E_TRUTH = dict(v_sys=0.0, sigma_max=12.0, v_back=40.0, sigma_back=50.0, f_back=1.0)
+E_BOUNDS = dict(v_sys=("abs", 0.5), sigma_max=("rel", 0.05), v_back=("abs", 3.0),
+                sigma_back=("rel", 0.10))
+
+
+def contaminated_catalog(seed=21, n_members=16384, n_field=4096,
+                         n_field_catalog=8192):
+    """Path E's catalog, as numpy columns: ``make_mock_cluster`` members with a
+    near-constant dispersion (a = 1e6 arcsec) and no rotation, plus field
+    stars uniform over the same disk (r < 300 arcsec) with v ~ N(40, 50^2) and
+    errors drawn as the members' are.  ``density`` is the members' surface
+    density at the star's radius over the field's, so the true f_back is 1;
+    ``pmember`` is density / (density + 1).  Also returns ``n_field_catalog``
+    fresh draws of the field's velocity law (the SingleStars catalog)."""
+    from math import erf
+
+    from mcmc_dynamics_tpu_torch import make_mock_cluster
+
+    data, truth = make_mock_cluster(n_stars=n_members, sigma_max=12.0, v_max=0.0,
+                                    a=1e6, seed=seed)
+    table = data.data
+    ra_c, dec_c = truth["ra_center"], truth["dec_center"]
+    r_max = truth["r_peak"] * 5.0                     # make_mock_cluster's cut
+    rng = np.random.default_rng(seed + 1)
+    r_f = r_max * np.sqrt(rng.random(n_field))
+    phi = rng.uniform(-math.pi, math.pi, n_field)
+    ra_f = ra_c - (r_f / 3600.0) * np.cos(phi) / math.cos(math.radians(dec_c))
+    dec_f = dec_c + (r_f / 3600.0) * np.sin(phi)
+    sigma_los = 12.0 / (1.0 + (r_f / 1e6) ** 2) ** 0.25
+    verr_f = 0.1 * sigma_los * rng.lognormal(0.0, 0.5, size=n_field)
+    v_f = rng.normal(40.0, 50.0, n_field) + verr_f * rng.normal(size=n_field)
+    ra = np.concatenate([table.value("ra", "deg"), ra_f])
+    dec = np.concatenate([table.value("dec", "deg"), dec_f])
+    # radius from the placement formula, inverted exactly (arcsec)
+    r = 3600.0 * np.hypot((ra_c - ra) * math.cos(math.radians(dec_c)), dec - dec_c)
+    # members: radii half-normal of scale r_max / 2 truncated at r_max
+    scale = r_max / 2.0
+    pdf_r = (2.0 / (scale * math.sqrt(2 * math.pi)) * np.exp(-0.5 * (r / scale) ** 2)
+             / erf(r_max / (scale * math.sqrt(2.0))))
+    sigma_members = n_members * pdf_r / (2.0 * math.pi * np.maximum(r, 1e-3))
+    sigma_field = n_field / (math.pi * r_max ** 2)
+    density = sigma_members / sigma_field
+    columns = {"ra": (ra, "deg"), "dec": (dec, "deg"),
+               "v": (np.concatenate([table.value("v", "km/s"), v_f]), "km/s"),
+               "verr": (np.concatenate([table.value("verr", "km/s"), verr_f]), "km/s"),
+               "density": (density, None), "pmember": (density / (density + 1.0), None)}
+    field_catalog = rng.normal(40.0, 50.0, n_field_catalog)
+    return columns, field_catalog, dict(truth, **E_TRUTH)
+
+
+def contaminated_params(parameters, gb):
+    """Priors and initial walkers of path E's fits (centre fixed at truth)."""
+    parameters["ra_center"].set(value=56.345, fixed=True)
+    parameters["dec_center"].set(value=-26.675, fixed=True)
+    parameters["v_sys"].set(min=-20.0, max=20.0, initials="rng.normal(0, 1, size=n)")
+    parameters["sigma_max"].set(max=60.0, initials="rng.uniform(8, 16, size=n)")
+    for name in ("v_maxx", "v_maxy"):
+        parameters[name].set(min=-30.0, max=30.0, initials="rng.normal(0, 1, size=n)")
+    if gb:
+        parameters["v_back"].set(min=-100.0, max=200.0,
+                                 initials="rng.uniform(20, 60, size=n)")
+        parameters["sigma_back"].set(max=200.0, initials="rng.uniform(30, 70, size=n)")
+        parameters["f_back"].set(max=5.0, initials="rng.uniform(0.5, 2, size=n)")
+    return parameters
+
+
+def check_truth(label, values, truth, keys):
+    for key in keys:
+        kind, tol = E_BOUNDS[key]
+        off = values[key] - truth[key]
+        if (abs(off) if kind == "abs" else abs(off / truth[key])) > tol:
+            raise AssertionError(f"{label}: {key} median {values[key]:.5g} vs truth "
+                                 f"{truth[key]} (bound {kind} {tol})")
+
+
+def phase_contaminated(device, path, columns, field_catalog, truth, n_walkers=256,
+                       n_steps=400):
+    """Main path E1 (ConstantFitGB through kernel 5) or E2 (ConstantFit with a
+    SingleStars background: kernel 10 at construction, kernel 4 after)."""
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
+    from mcmc_dynamics_tpu_torch.background import SingleStars
+    from mcmc_dynamics_tpu_torch.models import ConstantFit, ConstantFitGB
+
+    gb = path == "E1"
+    names = [n for n in columns if gb or n != "density"]
+    data = DataReader({n: (u.Quantity(columns[n][0], columns[n][1]) if columns[n][1]
+                           else columns[n][0]) for n in names})
+    t0 = time.perf_counter()
+    if gb:
+        fit = ConstantFitGB(data, parameters=contaminated_params(
+            ConstantFitGB.default_parameters(), gb=True), seed=22, device=device)
+        tier = "gb"
+    else:
+        fit = ConstantFit(data, parameters=contaminated_params(
+            ConstantFit.default_parameters(), gb=False), seed=23, device=device,
+            background=SingleStars(field_catalog, device=device))
+        tier = "mixture"
+    setup_s = time.perf_counter() - t0
+    if fit.lnprob_tier() != tier:
+        raise AssertionError(f"path {path} tier {fit.lnprob_tier()}, expected {tier}")
+    pos = fit.get_initials(n_walkers)
+    run, seconds = timed_run(fit, n_walkers=n_walkers, n_steps=n_steps, pos=pos,
+                             prefix=None)
+    values = medians(run.chain, fit.fitted_parameters, n_steps // 2)
+    keys = ("v_sys", "sigma_max") + (("v_back", "sigma_back") if gb else ())
+    check_truth(f"path {path}", values, truth, keys)
+    return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps, setup_s=setup_s,
+                s_per_step=seconds / n_steps, evals_per_s=n_walkers * n_steps / seconds,
+                acceptance=float(np.mean(run.acceptance_fraction)), medians=values,
+                fit=fit)
+
+
+def profile_path(label, fn, n_steps, kernel_names):
+    """Run ``fn`` (``n_steps`` ensemble steps) under torch.profiler and print
+    the device time per step (CUDA kernel time summed by name), each named
+    kernel's time per step, the device kernels per step, and the shares of
+    the traced wall time.  The profiler slows the host: hold the per-step
+    device times against an untraced ms/step, not the traced wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, per_kernel, n_kernels = 0.0, dict.fromkeys(kernel_names, 0.0), 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        t = evt.self_cuda_time_total if t is None else t
+        busy += t
+        n_kernels += evt.count
+        for name in kernel_names:
+            if name in evt.key:
+                per_kernel[name] += t
+    kernels = " ".join(f"| {n} {t / n_steps / 1e3:.4f} ms/step "
+                       f"({100 * t / wall_us:.2f} % of traced wall)"
+                       for n, t in per_kernel.items())
+    print(f"  profile {label}: {n_steps} steps | device {busy / n_steps / 1e3:.4f} "
+          f"ms/step, {n_kernels / n_steps:.1f} device kernels/step | traced wall "
+          f"{wall_us / n_steps / 1e3:.4f} ms/step, device busy "
+          f"{100 * busy / wall_us:.2f} % of it {kernels}")
+
+
+# ----------------------------------------------------------------------------- main
+def main(argv=None) -> int:
+    import torch
+
+    args = sys.argv[1:] if argv is None else argv
+    profiling = "--profile" in args
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU.", file=sys.stderr)
@@ -368,30 +830,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    from mcmc_dynamics_tpu_torch.ops import MODEL_LNLIKE, MODEL_TENSOR
+    from mcmc_dynamics_tpu_torch.ops import (
+        KERNELS, background_logsumexp, background_logsumexp_reference,
+        constant_gb_lnlike_batched, constant_gb_lnlike_reference,
+        constant_mixture_lnlike_reference, model_freecenter_lnlike_batched,
+        model_freecenter_lnlike_reference)
 
+    def drive(label, fn, expect):
+        """Run one main path with every launch count at 0 before it; the
+        kernels in ``expect`` must launch, every other kernel must not."""
+        for kernel in KERNELS.values():
+            kernel.launches = 0
+        out = fn()
+        counts = {name: kernel.launches for name, kernel in KERNELS.items()}
+        for name, count in counts.items():
+            if (count > 0) != (name in expect):
+                raise AssertionError(f"path {label} launches: {counts}")
+        for name in expect:
+            launches[name] += counts[name]
+        out["launches"] = {name: counts[name] for name in expect}
+        return out
+
+    launches = dict.fromkeys(KERNELS, 0)
     smi = phase_environment()
     direct = phase_direct_kernel(device)
     mock_fit, truth = mock_tensor_fit(device, n_stars=100_000, seed=5)
     tensor = phase_tensor_kernel(device, mock_fit)
 
-    # the main path: counts from here on are its launches only
-    MODEL_LNLIKE.launches = 0
-    MODEL_TENSOR.launches = 0
-    recipe = phase_recipe(device)
-    l1_a, l2_a = MODEL_LNLIKE.launches, MODEL_TENSOR.launches
-    if l1_a == 0 or l2_a != 0:
-        raise AssertionError(f"path A launches: kernel 1 {l1_a}, kernel 2 {l2_a}")
+    recipe = drive("A", lambda: phase_recipe(device), {"model_lnlike"})
     print(f"phase 4 main path A (omega Cen recipe, direct tier): "
           f"{recipe['stars']} stars, {recipe['walkers']} walkers x "
           f"{recipe['steps']} steps | {recipe['s_per_step'] * 1e3:.4f} ms/step "
           f"(650-step run) | acceptance {recipe['acceptance']:.3f} | goldens ok "
           f"{json.dumps({k: round(float(v), 4) for k, v in recipe['medians'].items()})}"
-          f" | bitwise resume ok | launches kernel 1 {l1_a}, kernel 2 {l2_a}")
-    path_b = phase_tensor_path(device, mock_fit, truth)
-    l1_b, l2_b = MODEL_LNLIKE.launches - l1_a, MODEL_TENSOR.launches - l2_a
-    if l2_b == 0 or l1_b != 0:
-        raise AssertionError(f"path B launches: kernel 1 {l1_b}, kernel 2 {l2_b}")
+          f" | bitwise resume ok | launches {recipe['launches']}")
+    path_b = drive("B", lambda: phase_tensor_path(device, mock_fit, truth),
+                   {"model_tensor"})
     print(f"phase 5 main path B (tensor tier): {path_b['stars']} stars, "
           f"{path_b['walkers']} walkers x {path_b['steps']} steps | table "
           f"build {path_b['setup_s']:.2f} s | {path_b['s_per_step'] * 1e3:.4f} "
@@ -400,23 +874,84 @@ def main() -> int:
           f"{path_b['acceptance']:.3f} | medians v_sys "
           f"{path_b['medians']['v_sys']:.4f} sigma_max "
           f"{path_b['medians']['sigma_max']:.4f} (truth {truth['v_sys']}, "
-          f"{truth['sigma_max']}) | launches kernel 1 {l1_b}, kernel 2 {l2_b}")
+          f"{truth['sigma_max']}) | launches {path_b['launches']}")
 
-    big = direct[0]
+    freecenter = pair_kernel_phase(
+        6, "model_freecenter", model_freecenter_lnlike_batched,
+        model_freecenter_lnlike_reference, freecenter_inputs(device),
+        ((16384, 10_000, 240), (32, 6284, 116)), DIRECT_TOL, rows_k=8, cols_k=8)
+    mixture = pair_kernel_phase(
+        7, "constant_mixture", constant_mixture_split,
+        constant_mixture_lnlike_reference, constant_inputs(device, gb=False),
+        ((16384, 10_000, 240), (128, 20_480, 0)), DIRECT_TOL, rows_k=7, cols_k=4)
+    gb = pair_kernel_phase(
+        8, "constant_gb", constant_gb_lnlike_batched, constant_gb_lnlike_reference,
+        constant_inputs(device, gb=True), ((16384, 10_000, 240), (128, 20_480, 0)),
+        DIRECT_TOL, rows_k=7, cols_k=7)
+    lse = pair_kernel_phase(
+        9, "background_lse", background_logsumexp, background_logsumexp_reference,
+        background_inputs(device), ((20_480, 8192, 0), (20_480, 3001, 0)),
+        BACKGROUND_TOL, rows_k=1, cols_k=2, split=False)
+
+    def path_line(phase, label, out, extra=""):
+        print(f"phase {phase} main path {label}: {out['stars']} stars, "
+              f"{out['walkers']} walkers x {out['steps']} steps{extra} | "
+              f"{out['s_per_step'] * 1e3:.4f} ms/step | {out['evals_per_s']:.4g} "
+              f"lnprob evals/s | acceptance {out['acceptance']:.3f} | medians "
+              f"{json.dumps({k: round(v, 5) for k, v in out['medians'].items()})} | "
+              f"launches {out['launches']}")
+
+    path_c = drive("C", lambda: phase_center_recipe(device), set())
+    path_line(10, "C (omega Cen free-centre ConstantFit recipe, generic tier)",
+              path_c, " | goldens ok")
+    path_d = drive("D", lambda: phase_freecenter_path(device), {"model_freecenter"})
+    path_line(11, "D (free-centre ModelFit on the omega Cen catalog, kernel 3)",
+              path_d, " | goldens ok (ra/dec: centre bands; sigma_max: "
+              "fixed-centre band) | bitwise resume ok")
+    columns, field_catalog, e_truth = contaminated_catalog()
+    path_e1 = drive("E1", lambda: phase_contaminated(
+        device, "E1", columns, field_catalog, e_truth), {"constant_gb"})
+    path_line(12, "E1 (ConstantFitGB, kernel 5)", path_e1, f" | truth {E_TRUTH}")
+    path_e2 = drive("E2", lambda: phase_contaminated(
+        device, "E2", columns, field_catalog, e_truth),
+        {"background_lse", "constant_mixture"})
+    path_line(13, "E2 (ConstantFit + SingleStars, kernels 10 and 4)", path_e2,
+              f" | set-up with the KDE {path_e2['setup_s']:.3f} s")
+
+    if profiling:
+        fit_a, _ = load_recipe(device)
+        fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
+        fit_d, _ = freecenter_fit(device)
+        for label, fit, n_walkers, names in (
+                ("A", fit_a, 64, ["model_lnlike_kernel"]),
+                ("B", mock_fit, 1024, ["model_tensor_kernel"]),
+                ("C", fit_c, 64, []), ("D", fit_d, 64, ["model_freecenter_kernel"]),
+                ("E1", path_e1["fit"], 256, ["constant_gb_kernel"]),
+                ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"])):
+            pos = fit.get_initials(n_walkers)
+            fit(n_walkers=n_walkers, n_steps=20, pos=pos, prefix=None)   # warm-up
+            profile_path(label, lambda: fit(n_walkers=n_walkers, n_steps=100,
+                                            pos=pos, prefix=None), 100, names)
+
+    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0]),
+            ("model_tensor", "model_tensor.cu", "mcmc_dynamics_tpu/ops/model_tensor.py:487", tensor),
+            ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0]),
+            ("constant_mixture", "constant_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:148", mixture[0]),
+            ("constant_gb", "constant_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:699", gb[0]),
+            ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0])]
     kernels = {"kernels": [
-        {"name": "model_lnlike", "route": "cuda",
-         "source": "mcmc_dynamics_tpu_torch/csrc/model_lnlike.cu",
-         "replaces": "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248",
-         "launches": MODEL_LNLIKE.launches, "max_abs_err": big["max_abs_err"],
-         "ms": big["ms"], "plain_ms": big["plain_ms"]},
-        {"name": "model_tensor", "route": "cuda",
-         "source": "mcmc_dynamics_tpu_torch/csrc/model_tensor.cu",
-         "replaces": "mcmc_dynamics_tpu/ops/model_tensor.py:487",
-         "launches": MODEL_TENSOR.launches, "max_abs_err": tensor["max_abs_err"],
-         "ms": tensor["ms"], "plain_ms": tensor["plain_ms"]},
-    ]}
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported JAX")
+        {"name": name, "route": "cuda",
+         "source": f"mcmc_dynamics_tpu_torch/csrc/{source}", "replaces": replaces,
+         "launches": launches[name], "max_abs_err": row["max_abs_err"],
+         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"],
+         # no single PyTorch call computes any of these functions
+         "library_ms": None}
+        for name, source, replaces, row in rows]}
+    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                    or m == "mcmc_dynamics_tpu" or m.startswith("mcmc_dynamics_tpu."))
+    if loaded:
+        raise AssertionError(f"the port imported JAX or the JAX package: {loaded}")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,21 @@ names, its parameter files, its sampler semantics and its ``.npz`` checkpoint
 layout, and runs the same models on an NVIDIA GPU (Hopper, ``sm_90a``) through
 kernels written by hand in CUDA C++ (``csrc/``).
 
-What runs today is the fixed-centre global :class:`~.models.ModelFit`
-(Lynden-Bell rotation + Plummer dispersion), sampled by the stretch-move
-ensemble, with both of its likelihood tiers: the direct walker x star kernel
-and the tensor-Chebyshev table kernel.
+What runs today, sampled by the stretch-move ensemble:
 
-The port never imports JAX.  The host modules of the reference package that do
-not load JAX (units, ``Parameter``/``Parameters``, the expression validator,
-``utils`` and ``mock``) are reused, not copied.
+* the global :class:`~.models.ModelFit` (Lynden-Bell rotation + Plummer
+  dispersion) with a fixed centre (the direct walker x star kernel and the
+  tensor-Chebyshev table kernel) or a sampled centre (the free-centre kernel);
+* the single-bin :class:`~.models.ConstantFit` (the sufficient-statistics tier,
+  the fixed-background mixture kernel, or plain torch for a sampled centre)
+  and :class:`~.models.ConstantFitGB` (the density-mixture kernel);
+* the field-star backgrounds :class:`~.background.Gaussian` and
+  :class:`~.background.SingleStars` (the log-sum-exp KDE kernel).
+
+The port imports nothing of the JAX package, not even its modules that do not
+load JAX: units, ``Parameter``/``Parameters``, the expression validator,
+``utils`` and ``mock`` are copies of the reference's own code, held to it by
+the parity tests.
 
 Device and dtype policy: every entry point takes an explicit ``device=``
 (default ``"cuda"``; nothing ever falls back to the CPU silently).  The working
@@ -24,15 +31,18 @@ from __future__ import annotations
 
 import torch
 
-from mcmc_dynamics_tpu import units
-from mcmc_dynamics_tpu.mock import make_mock_cluster
-from mcmc_dynamics_tpu.parameters import Parameter, Parameters
-from mcmc_dynamics_tpu.utils import DataReader, Table
+from . import units
+from .mock import make_mock_cluster
+from .parameters import Parameter, Parameters
+from .utils import DataReader, Table
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 __all__ = ["units", "Parameter", "Parameters", "DataReader", "Table",
-           "make_mock_cluster", "resolve_device", "default_dtype"]
+           "make_mock_cluster", "resolve_device", "default_dtype",
+           "ModelFit", "ConstantFit", "ConstantFitGB", "Gaussian", "SingleStars",
+           "MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
+           "CONSTANT_GB", "BACKGROUND_LSE"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -53,3 +63,11 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
 def default_dtype(device) -> torch.dtype:
     """float32 on CUDA (throughput), float64 on the CPU (parity checks)."""
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+# the models, backgrounds and launch counters (after resolve_device and
+# default_dtype, which they import)
+from .background import Gaussian, SingleStars  # noqa: E402
+from .models import ConstantFit, ConstantFitGB, ModelFit  # noqa: E402
+from .ops import (BACKGROUND_LSE, CONSTANT_GB, CONSTANT_MIXTURE,  # noqa: E402
+                  MODEL_FREECENTER, MODEL_LNLIKE, MODEL_TENSOR)

@@ -1,8 +1,9 @@
 """Carry state across from the JAX package to this one.
 
-The functions take the JAX package's objects as plain arrays (anything
-``numpy.asarray`` reads), so this module imports no JAX.  With them the tests
-feed both packages the same tables and the same walkers.
+The functions take the JAX package's objects duck-typed (their JSON, plain
+arrays that ``numpy.asarray`` reads), so this module imports nothing of that
+package.  With them the tests feed both packages the same parameters, tables
+and walkers.
 """
 
 from __future__ import annotations
@@ -13,9 +14,18 @@ import numpy as np
 import torch
 
 from .ops.model_tensor import ModelTensorStats
+from .parameters import Parameters
 from .sampler.stretch import EnsembleState, make_generator
 
-__all__ = ["tensor_stats_from_jax", "state_from_jax_checkpoint"]
+__all__ = ["parameters_from_reference", "tensor_stats_from_jax",
+           "state_from_jax_checkpoint"]
+
+
+def parameters_from_reference(params) -> Parameters:
+    """The port's :class:`Parameters` from the JAX package's, through its
+    native JSON (``p.dumps()``): values, units, bounds, expressions, the seed
+    and the generator state, so both draw the same initial walkers."""
+    return Parameters().loads(params.dumps())
 
 
 def tensor_stats_from_jax(stats, *, device, dtype: torch.dtype) -> ModelTensorStats:

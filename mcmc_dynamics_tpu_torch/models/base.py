@@ -1,9 +1,9 @@
 """Model base class: host shell compiling data + parameters into a batched lnprob.
 
-Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (the subset the fixed-centre
-ModelFit path needs).  Observables are converted to internal units on the host
-in float64 and then placed on the model's device in its working dtype.  A
-batched lnprob maps a (W, K) walker block to (W,); the sampler runs it on
+Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (the subset the ModelFit
+and ConstantFit paths need).  Observables are converted to internal units on
+the host in float64 and then placed on the model's device in its working dtype.
+A batched lnprob maps a (W, K) walker block to (W,); the sampler runs it on
 half-ensembles.  Checkpoints are ``.npz`` files with the reference's keys, so
 the JAX package reads the chains this package writes.
 """
@@ -19,23 +19,20 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-import mcmc_dynamics_tpu
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.parameters import Parameters
-from mcmc_dynamics_tpu.utils.coordinates import get_amplitude_and_angle, xy_offset_rad
-from mcmc_dynamics_tpu.utils.data import DataReader
-from mcmc_dynamics_tpu.utils.table import Table
-
 from .. import default_dtype, resolve_device
+from .. import units as u
 from ..expressions import compile_torch
-from ..parameters import CompiledParameters
+from ..parameters import CompiledParameters, Parameters
 from ..sampler.stretch import (EnsembleState, check_move, init_state,
                                make_generator, run_ensemble)
+from ..utils.coordinates import get_amplitude_and_angle, xy_offset_rad
+from ..utils.data import DataReader
+from ..utils.table import Table
 
 logger = logging.getLogger(__name__)
 
-# the reference's bundled parameter files (model.json, ...)
-_CONFIG_DIR = pathlib.Path(mcmc_dynamics_tpu.__file__).resolve().parent / "config"
+# the bundled parameter files (model.json, ...), copies of the reference's
+_CONFIG_DIR = pathlib.Path(__file__).resolve().parents[1] / "config"
 
 
 class Runner:
@@ -53,17 +50,14 @@ class Runner:
     parameters_file: Optional[str] = None
 
     # observables converted to these units before they reach the device
-    _OBSERVABLE_INTERNAL = {"v": "km/s", "verr": "km/s", "ra": "rad", "dec": "rad"}
+    _OBSERVABLE_INTERNAL = {"v": "km/s", "verr": "km/s", "ra": "rad", "dec": "rad",
+                            "density": None, "pmember": None}
 
     # walkers per slice of the generic batched lnprob (bounds its (w, N) temporaries)
     lnprob_chunk = 64
 
     def __init__(self, data, parameters: Optional[Parameters] = None,
                  seed: int = 123, background=None, device="cuda", dtype=None):
-        if background is not None:
-            raise NotImplementedError(
-                "Background mixtures are not ported to torch yet "
-                "(ROADMAP.md queue 1, item 9).")
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device) if dtype is None else dtype
         self.seed = seed
@@ -110,6 +104,20 @@ class Runner:
         if parameters.rng_seed is None:
             parameters.reseed(seed)
         self.parameters = parameters
+
+        # background population (field stars): per-star ln-likelihoods are
+        # data, computed once on the host in float64 (reference runner.py:96-106)
+        self.background = background
+        if background is not None:
+            if "pmember" not in data.data:
+                raise IOError("Background population requires a 'pmember' column "
+                              "with prior membership probabilities.")
+            lnl_back = np.asarray(background(data.data["v"], data.data["verr"]),
+                                  dtype=np.float64)
+            pmember = np.asarray(data.data.value("pmember"), dtype=np.float64)
+            for name, values in (("lnlike_background", lnl_back), ("pmember", pmember)):
+                self._host_arrays[name] = values
+                self._data_arrays[name] = self._to_device(values)
 
         self._compiled: Optional[CompiledParameters] = None
         self._compiled_fp = None
@@ -183,6 +191,18 @@ class Runner:
 
         return batched
 
+    def _with_prior(self, lnlike: Callable) -> Callable:
+        """Batched lnprob = lnprior + ``lnlike(thetas)``, -inf wherever the
+        prior is (the likelihood tiers' common wrapper)."""
+        lnprior = self.compiled.lnprior
+
+        def batched(thetas):
+            lp = lnprior(thetas)
+            return torch.where(torch.isfinite(lp), lp + lnlike(thetas),
+                               torch.full_like(lp, -math.inf))
+
+        return batched
+
     def batched_lnprob(self) -> Callable:
         """The batched lnprob the sampler runs: ``build_lnprob_batched``,
         rebuilt only when the parameters or the tier choice
@@ -230,6 +250,63 @@ class Runner:
         dec_c = self.parameters["dec_center"].quantity.to(u.rad).value
         return xy_offset_rad(self._host_arrays["ra"], self._host_arrays["dec"],
                              float(ra_c), float(dec_c), xp=np)
+
+    # ------------------------------------------------------------ free centre
+    _FC_COLUMNS = ("fc_dx0", "fc_dy0", "fc_pm", "fc_qm", "fc_b0")
+
+    def _freecenter_constants(self):
+        """Host float64 star constants of the exact shifted-centre van de
+        Ven+06 projection, in ARCMIN units (derivation:
+        ``ops.lnlike_kernels.model_freecenter_lnlike_reference``).  The
+        reference point is the catalog median centre — the trig identities are
+        exact at ANY walker offset; the point only anchors the float64
+        precomputation (the large spherical terms cancel analytically into
+        dx0/dy0 instead of catastrophically in f32).  Memoized: catalog-only."""
+        cached = getattr(self, "_fc_constants", None)
+        if cached is not None:
+            return cached
+        arcmin_per_rad = 10800.0 / math.pi
+        ra = np.asarray(self._host_arrays["ra"], np.float64)     # rad
+        dec = np.asarray(self._host_arrays["dec"], np.float64)
+        ra0 = float(np.median(ra))
+        dec0 = float(np.median(dec))
+        s0, c0 = float(np.sin(dec0)), float(np.cos(dec0))
+        d = ra - ra0
+        pm = arcmin_per_rad * np.cos(dec) * np.cos(d)
+        qm = arcmin_per_rad * np.cos(dec) * np.sin(d)
+        sm = arcmin_per_rad * np.sin(dec)
+        dx0 = -qm
+        dy0 = sm * c0 - pm * s0
+        b0 = sm * s0 + pm * c0
+        self._fc_constants = ((ra0, dec0, s0, c0), (dx0, dy0, pm, qm, b0))
+        return self._fc_constants
+
+    def add_freecenter_columns(self, data):
+        """Ship the shifted-centre star constants as per-star data columns:
+        free-centre likelihoods evaluate the projection from them with
+        per-WALKER trig only (:meth:`freecenter_offsets_arcmin`)."""
+        _, tabs = self._freecenter_constants()
+        for name, tab in zip(self._FC_COLUMNS, tabs):
+            data[name] = self._to_device(tab)
+        return data
+
+    def freecenter_offsets_arcmin(self, p, data):
+        """(dx, dy) arcmin offsets at the walker's sampled centre, from the
+        fc_* data columns — the exact trig-identity form (no small-offset
+        expansion; equals xy_offset_rad in exact arithmetic at any offset).
+        A centre coordinate held fixed arrives as a Python float."""
+        (ra0, dec0, s0, c0), _ = self._freecenter_constants()
+        eps = p["ra_center"] - ra0
+        eta = p["dec_center"] - dec0
+        ue = _sin(eps)
+        we = 2.0 * _sin(0.5 * eps) ** 2          # 1 - cos(eps), stable
+        un = _sin(eta)
+        wn = 2.0 * _sin(0.5 * eta) ** 2
+        rdel = data["fc_qm"] * ue - data["fc_pm"] * we
+        dx = data["fc_dx0"] + (data["fc_pm"] * ue + data["fc_qm"] * we)
+        a_ = data["fc_dy0"] - s0 * rdel
+        b_ = data["fc_b0"] + c0 * rdel
+        return dx, a_ - (wn * a_ + un * b_)
 
     def get_initials(self, n_walkers: int) -> np.ndarray:
         return self.compiled.sample_initials(n_walkers)
@@ -448,6 +525,60 @@ def gaussian_lnlike_terms(v, verr, v_los, sigma_los):
     n = verr^2 + sigma^2."""
     norm = verr * verr + sigma_los * sigma_los
     return -0.5 * (torch.log(2.0 * math.pi * norm) + (v - v_los) ** 2 / norm)
+
+
+def mixture_lnlike_terms(lnlike_member, lnlike_background, pmember):
+    """Two-population mixture per star via log-sum-exp (runner.py:272-286):
+    ln[p * e^{lnL_m} + (1-p) * e^{lnL_b}]."""
+    return torch.logaddexp(torch.log(pmember) + lnlike_member,
+                           torch.log1p(-pmember) + lnlike_background)
+
+
+def density_membership(density, f_back):
+    """Membership prior m = density / (density + f_back), safe at the corner
+    density = 0 AND f_back = 0 (both within their priors): the plain ratio is
+    0/0 = NaN there.  A zero-density star is pure background (m = 0).  Used
+    for a-posteriori membership outputs; the likelihood itself goes through
+    :func:`density_mixture_terms`."""
+    den = density + f_back
+    tiny = torch.finfo(den.dtype).tiny
+    return density / torch.clamp(den, min=tiny)
+
+
+def density_mixture_terms(density, ln_density, f_back, lnl_member,
+                          lnl_background):
+    """Per-star density-weighted mixture in log space — the SAME formula as
+    the fused kernels (``ops/lnlike_kernels.py``):
+
+        lnL_i = logaddexp(ln D_i + lnL_m, ln f + lnL_b) - ln(D_i + f)
+
+    Working from the float64-accurate ``ln_density`` (:func:`with_density_logs`)
+    keeps a density that underflows to 0 in float32 weighting the cluster
+    branch correctly, and the clamped normaliser keeps f_back = 0 (the prior's
+    lower bound) finite."""
+    ln_f = torch.log(torch.as_tensor(f_back, dtype=density.dtype,
+                                     device=density.device))  # -inf at 0: fine
+    den = density + f_back
+    tiny = torch.finfo(den.dtype).tiny
+    return (torch.logaddexp(ln_density + lnl_member, ln_f + lnl_background)
+            - torch.log(torch.clamp(den, min=tiny)))
+
+
+def with_density_logs(data, density, to_device):
+    """Clamp the host float64 ``density`` column away from zero, and attach it
+    and its float64-accurate log as ``density`` and ``ln_density`` (through
+    ``to_device``).  The 1e-300 clamp only binds for exactly-zero densities;
+    its log (-690.8) stays finite after the cast even in float32, where the
+    clamped density itself underflows to 0."""
+    if "ln_density" not in data:
+        dens = np.maximum(np.asarray(density, np.float64), 1e-300)
+        data["density"] = to_device(dens)
+        data["ln_density"] = to_device(np.log(dens))
+    return data
+
+
+def _sin(x):
+    return torch.sin(x) if torch.is_tensor(x) else math.sin(x)
 
 
 def masked_sum(terms, data):

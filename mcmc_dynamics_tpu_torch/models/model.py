@@ -1,7 +1,6 @@
 """Global radial model: Lynden-Bell rotation curve + Plummer dispersion profile.
 
-Counterpart of ``ModelFit`` in ``mcmc_dynamics_tpu/models/model.py``, for a
-fixed cluster centre:
+Counterpart of ``ModelFit`` in ``mcmc_dynamics_tpu/models/model.py``:
 
 * rotation ``v_los = v_sys + 2 (v_max / r_peak) x_pa / (1 + (r/r_peak)^2)``;
 * dispersion ``sigma(r) = sigma_max / (1 + r^2/a^2)^(1/4)``.
@@ -9,15 +8,18 @@ fixed cluster centre:
 The batched lnprob dispatches between the same tiers as the reference, with
 the same 16384-star threshold and the same ``MCMC_TPU_LNPROB`` semantics:
 
-* ``direct``: the walker x star kernel (``ops.lnlike_kernels``);
+* ``direct``: the fixed-centre walker x star kernel (``ops.lnlike_kernels``);
 * ``tensor``: the tensor-Chebyshev table kernel (``ops.model_tensor``), for
   catalogs of 16384 stars and more when ``a`` and ``r_peak`` have finite
   priors, or when forced;
-* ``generic``: plain torch over ``lnlike_terms``, for non-canonical layouts
-  (e.g. a kinematic parameter held fixed).
+* ``freecenter``: the free-centre walker x star kernel, for the eight-parameter
+  layout with both centre coordinates sampled;
+* ``generic``: plain torch over ``lnlike_terms``, for every other layout
+  (a kinematic parameter held fixed, one centre coordinate sampled, a
+  background population).
 
-A tier this port does not have yet raises ``NotImplementedError`` instead of
-running another tier in its place.
+The radially-binned table tier (``sufficient``) is not ported yet and raises
+``NotImplementedError`` instead of running another tier in its place.
 """
 
 from __future__ import annotations
@@ -29,12 +31,12 @@ import os
 import numpy as np
 import torch
 
-from mcmc_dynamics_tpu import units as u
-from mcmc_dynamics_tpu.utils.table import Table
-
-from ..ops.lnlike_kernels import model_lnlike_batched
+from .. import units as u
+from ..utils.table import Table
+from ..ops.lnlike_kernels import (model_freecenter_lnlike_batched,
+                                  model_lnlike_batched)
 from ..ops.model_tensor import ModelTensorStats, model_tensor_lnlike
-from .base import Runner, gaussian_lnlike_terms
+from .base import Runner, gaussian_lnlike_terms, mixture_lnlike_terms
 
 logger = logging.getLogger(__name__)
 
@@ -44,9 +46,6 @@ _ARCMIN_PER_RAD = 10800.0 / np.pi
 # auto mode: catalogs of this many stars and more take the table tiers
 # (a threshold measured on the reference's accelerator; not re-measured here)
 _TABLE_TIER_MIN_STARS = 16384
-
-_FREE_CENTRE_TODO = ("A sampled cluster centre (free-centre ModelFit, kernel 3) "
-                     "is not ported to torch yet (ROADMAP.md queue 1, item 7).")
 
 
 class ModelFit(Runner):
@@ -59,43 +58,65 @@ class ModelFit(Runner):
     parameters_file = "model.json"
 
     _CANONICAL_NAMES = ["v_sys", "sigma_max", "a", "v_maxx", "v_maxy", "r_peak"]
+    _FREECENTER_NAMES = _CANONICAL_NAMES + ["ra_center", "dec_center"]
 
     # ------------------------------------------------------------------ model
     def _fixed_offsets_arcmin(self):
         """Host float64 (dx, dy) offsets in arcmin from the fixed centre."""
-        if not self.center_is_fixed():
-            raise NotImplementedError(_FREE_CENTRE_TODO)
         dx, dy = self.fixed_center_offsets()
         return dx * _ARCMIN_PER_RAD, dy * _ARCMIN_PER_RAD
 
     def prepare_data(self, data):
         """Fixed centre: (dx, dy) arcmin offsets precomputed in float64 on the
-        host, so the likelihood has no per-star trigonometry."""
-        dx, dy = self._fixed_offsets_arcmin()
-        data["dxm"] = self._to_device(dx)
-        data["dym"] = self._to_device(dy)
+        host, so the likelihood has no per-star trigonometry.  Free centre:
+        the exact shifted-centre star constants as data columns, from which
+        :meth:`_offsets_arcmin` evaluates the projection with per-WALKER trig
+        only."""
+        if self.center_is_fixed():
+            dx, dy = self._fixed_offsets_arcmin()
+            data["dxm"] = self._to_device(dx)
+            data["dym"] = self._to_device(dy)
+        else:
+            data = self.add_freecenter_columns(data)
         return data
 
+    def _offsets_arcmin(self, p, data):
+        if "dxm" in data:
+            return data["dxm"], data["dym"]
+        return self.freecenter_offsets_arcmin(p, data)
+
     def rotation_field(self, p, data):
-        dx, dy = data["dxm"], data["dym"]
+        dx, dy = self._offsets_arcmin(p, data)
         r2 = dx * dx + dy * dy
         x_pa_vmax = dy * p["v_maxx"] - dx * p["v_maxy"]
         return p["v_sys"] + 2.0 * x_pa_vmax / (p["r_peak"] * (1.0 + r2 / p["r_peak"] ** 2))
 
     def dispersion_field(self, p, data):
-        dx, dy = data["dxm"], data["dym"]
+        dx, dy = self._offsets_arcmin(p, data)
         r2 = dx * dx + dy * dy
         return p["sigma_max"] / (1.0 + r2 / p["a"] ** 2) ** 0.25
 
     def lnlike_terms(self, p, data):
-        return gaussian_lnlike_terms(data["v"], data["verr"],
-                                     self.rotation_field(p, data),
-                                     self.dispersion_field(p, data))
+        terms = gaussian_lnlike_terms(data["v"], data["verr"],
+                                      self.rotation_field(p, data),
+                                      self.dispersion_field(p, data))
+        if "lnlike_background" in data:
+            terms = mixture_lnlike_terms(terms, data["lnlike_background"],
+                                         data["pmember"])
+        return terms
 
     # ------------------------------------------------------------------ dispatch
     def _canonical_layout(self) -> bool:
         return (type(self) is ModelFit and self.center_is_fixed()
+                and "lnlike_background" not in self._data_arrays
                 and self.compiled.free_names == self._CANONICAL_NAMES)
+
+    def _canonical_freecenter_layout(self) -> bool:
+        """The centre-fitting analog of :meth:`_canonical_layout`: both centre
+        coordinates sampled after the six kinematic parameters."""
+        return (type(self) is ModelFit
+                and "lnlike_background" not in self._data_arrays
+                and self.compiled.free_names == self._FREECENTER_NAMES)
 
     def _tensor_bounds(self):
         """Finite positive (lo, hi) prior bounds of ``a`` and ``r_peak`` in
@@ -112,12 +133,13 @@ class ModelFit(Runner):
 
     def lnprob_tier(self) -> str:
         """The tier :meth:`build_lnprob_batched` takes: ``"tensor"``,
-        ``"sufficient"``, ``"direct"``, ``"generic"`` or ``"freecenter"``
-        (the reference's decision, ``models/model.py:365-398``)."""
-        if not self.center_is_fixed():
-            return "freecenter"
+        ``"sufficient"``, ``"direct"``, ``"freecenter"`` or ``"generic"``
+        (the reference's decision, ``models/model.py:365-398``; the star
+        table is read from global memory and L2 on the card, so the
+        reference's VMEM budget ``star_table_fits_vmem`` does not apply)."""
         if not self._canonical_layout():
-            return "generic"
+            return ("freecenter" if self._canonical_freecenter_layout()
+                    else "generic")
         mode = os.environ.get("MCMC_TPU_LNPROB", "auto")
         big = int(self._data_arrays["v"].shape[0]) >= _TABLE_TIER_MIN_STARS
         if mode in ("auto", "tensor"):
@@ -135,8 +157,6 @@ class ModelFit(Runner):
     def build_lnprob_batched(self):
         tier = self.lnprob_tier()
         logger.info("ModelFit lnprob tier: %s", tier)
-        if tier == "freecenter":
-            raise NotImplementedError(_FREE_CENTRE_TODO)
         if tier == "sufficient":
             raise NotImplementedError(
                 "The radially-binned table tier (kernel 9), which the reference "
@@ -148,6 +168,8 @@ class ModelFit(Runner):
             return self.build_lnprob_tensor()
         if tier == "direct":
             return self.build_lnprob_direct()
+        if tier == "freecenter":
+            return self.build_lnprob_freecenter()
         return super().build_lnprob_batched()
 
     def _internal_col_scale(self) -> torch.Tensor:
@@ -164,16 +186,43 @@ class ModelFit(Runner):
         verr2 = self._to_device(self._host_arrays["verr"] ** 2)
         mask = torch.ones_like(v)
         col_scale = self._internal_col_scale()
-        lnprior = self.compiled.lnprior
+        return self._with_prior(lambda thetas: model_lnlike_batched(
+            thetas * col_scale, dxm, dym, r2, v, verr2, mask))
 
-        def batched(thetas):
-            lp = lnprior(thetas)
-            ll = model_lnlike_batched(thetas * col_scale, dxm, dym, r2, v,
-                                      verr2, mask)
-            return torch.where(torch.isfinite(lp), lp + ll,
-                               torch.full_like(lp, -math.inf))
+    def _freecenter_col_transform(self, ra0: float, dec0: float):
+        """(shift, scale) turning a free-centre theta into the kernel's
+        internal columns: kinematics as in :meth:`_internal_col_scale`, the
+        centre columns first re-zeroed on the reference point in DECLARED
+        units (a subtraction of nearly-equal values — exact in f32, unlike
+        scaling the raw coordinate) and then converted to radians."""
+        a_scale = self.compiled.scale_factors({"a": "arcmin"})["a"]
+        rp_scale = self.compiled.scale_factors({"r_peak": "arcmin"})["r_peak"]
+        scales = self.compiled.scale_factors({"ra_center": "rad", "dec_center": "rad"})
+        shift = np.zeros(8)
+        shift[6] = ra0 / scales["ra_center"]        # declared units
+        shift[7] = dec0 / scales["dec_center"]
+        scale = [1.0, 1.0, a_scale, 1.0, 1.0, rp_scale,
+                 scales["ra_center"], scales["dec_center"]]
+        return self._to_device(shift), self._to_device(scale)
 
-        return batched
+    def build_lnprob_freecenter(self):
+        """Batched lnprob through the free-centre walker x star kernel: the
+        projection at each walker's centre is a contraction of five float64
+        star constants with four per-walker sines."""
+        (ra0, dec0, s0, c0), tabs = self._freecenter_constants()
+        dx0, dy0, pm, qm, b0 = (self._to_device(t) for t in tabs)
+        v = self._data_arrays["v"]
+        verr2 = self._to_device(self._host_arrays["verr"] ** 2)
+        mask = torch.ones_like(v)
+        shift, scale = self._freecenter_col_transform(ra0, dec0)
+
+        def lnlike(thetas):
+            # subtract in declared units in the working dtype, then scale
+            return model_freecenter_lnlike_batched(
+                (thetas - shift) * scale, dx0, dy0, pm, qm, b0, v, verr2, mask,
+                s0=s0, c0=c0)
+
+        return self._with_prior(lnlike)
 
     def tensor_stats(self) -> ModelTensorStats:
         """The tensor tier's tables for this catalog and prior box, built on

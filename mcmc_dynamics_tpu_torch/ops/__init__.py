@@ -1,13 +1,35 @@
-"""Hand-written CUDA kernels of the port, each beside its plain torch version.
+"""Hand-written CUDA kernels of the port, each beside its plain torch version,
+and the plain-torch sufficient-statistics tier.
 
 Importing this package builds nothing: a kernel is compiled (``_build``) the
 first time a CUDA tensor reaches its wrapper.
 """
 
-from .lnlike_kernels import (MODEL_LNLIKE, model_lnlike_batched,
-                             model_lnlike_reference)
+from .background_kernel import (BACKGROUND_LSE, background_logsumexp,
+                                background_logsumexp_reference)
+from .lnlike_kernels import (CONSTANT_GB, CONSTANT_MIXTURE, MODEL_FREECENTER,
+                             MODEL_LNLIKE, constant_gb_lnlike_batched,
+                             constant_gb_lnlike_reference,
+                             constant_mixture_lnlike_batched,
+                             constant_mixture_lnlike_reference,
+                             model_freecenter_lnlike_batched,
+                             model_freecenter_lnlike_reference,
+                             model_lnlike_batched, model_lnlike_reference)
 from .model_tensor import MODEL_TENSOR, ModelTensorStats, model_tensor_lnlike
+from .sufficient import ConstantSufficientStats
 
-__all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "ModelTensorStats",
+# every kernel's launch counter, in the order of the repository's TPU kernels
+KERNELS = {"model_lnlike": MODEL_LNLIKE, "model_tensor": MODEL_TENSOR,
+           "model_freecenter": MODEL_FREECENTER,
+           "constant_mixture": CONSTANT_MIXTURE, "constant_gb": CONSTANT_GB,
+           "background_lse": BACKGROUND_LSE}
+
+__all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
+           "CONSTANT_GB", "BACKGROUND_LSE", "KERNELS", "ModelTensorStats",
+           "ConstantSufficientStats",
            "model_lnlike_batched", "model_lnlike_reference",
+           "model_freecenter_lnlike_batched", "model_freecenter_lnlike_reference",
+           "constant_mixture_lnlike_batched", "constant_mixture_lnlike_reference",
+           "constant_gb_lnlike_batched", "constant_gb_lnlike_reference",
+           "background_logsumexp", "background_logsumexp_reference",
            "model_tensor_lnlike"]

@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-Every ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, and loaded with
-``ctypes``.  No PyTorch header is included, so a build takes seconds.  The
-library lands in ``_build/<hash of the sources and flags>/`` inside this
-package (a directory that ``.gitignore`` lists), so an edited source rebuilds
-and an unchanged one is loaded as it is.
+Every ``.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` process for
+Hopper (``sm_90a``), all started together, and the objects are linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``.  No PyTorch
+header is included, so a build takes seconds.  The library lands in
+``_build/<hash of the sources, headers and flags>/`` inside this package (a
+directory that ``.gitignore`` lists), so an edited source rebuilds and an
+unchanged one is loaded as it is.
 
 A kernel is reached through a :class:`Kernel`: it calls the C launcher on the
 caller's stream, raises on a non-zero CUDA error code, and counts its
@@ -31,7 +32,7 @@ _CSRC_DIR = _PKG_DIR / "csrc"
 _BUILD_ROOT = _PKG_DIR / "_build"
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class BuildError(RuntimeError):
@@ -69,7 +70,7 @@ def build_library() -> BuildInfo:
     if not sources:
         raise BuildError(f"no CUDA sources under {_CSRC_DIR}")
     digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(_CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = _BUILD_ROOT / digest.hexdigest()[:16]
@@ -80,23 +81,32 @@ def build_library() -> BuildInfo:
         return BuildInfo(lib, 0.0, log)
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [find_nvcc(), *_NVCC_FLAGS]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    # build to a temporary name and rename: a process that finds the final
-    # name never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(cmd + ["-o", tmp] + [str(s) for s in sources],
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        # one nvcc per source, all running at once
+        objects, procs = [], []
+        for src in sources:
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objects.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        outputs = [proc.communicate()[0] for _, proc in procs]   # wait for all
+        for (cmd, proc), output in zip(procs, outputs):
+            if proc.returncode != 0:
+                raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                                 f"{output}")
+        log = "".join(outputs)
+        # link to a temporary name and rename: a process that finds the final
+        # name never loads a half-written library
+        tmp_lib = os.path.join(tmp, lib.name)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *objects],
                               capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                             f"{proc.stderr}{proc.stdout}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    log = proc.stderr + proc.stdout
+        if link.returncode != 0:
+            raise BuildError(f"nvcc link failed ({link.returncode})\n"
+                             f"{link.stderr}{link.stdout}")
+        os.replace(tmp_lib, lib)
     log_file.write_text(log)
     return BuildInfo(lib, time.perf_counter() - t0, log)
 

@@ -1,0 +1,11 @@
+"""Host utilities of the port: copies of ``mcmc_dynamics_tpu/utils`` modules
+(the table, the catalog reader and the sky geometry)."""
+
+from .coordinates import (calc_cartesian_pm, calc_xy_offset, get_amplitude_and_angle,
+                          get_perspective_rotation, xy_offset_rad)
+from .data import DataReader, radial_bin_numbers
+from .table import Table
+
+__all__ = ["Table", "DataReader", "radial_bin_numbers", "xy_offset_rad",
+           "calc_xy_offset", "calc_cartesian_pm", "get_perspective_rotation",
+           "get_amplitude_and_angle"]

@@ -1,7 +1,9 @@
-"""The port never imports JAX.
+"""The port imports neither JAX nor anything of the JAX package.
 
 ``tests/conftest.py`` imports JAX into every test process, so the check runs in
-a fresh interpreter.
+a fresh interpreter: it builds a fixed-centre and a free-centre ModelFit, a
+ConstantFitGB and a SingleStars background on the CPU, and then looks for
+``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in ``sys.modules``.
 """
 
 import pathlib
@@ -12,11 +14,13 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = """
 import sys
+import numpy as np
 import torch
 torch.set_num_threads(1)
 import mcmc_dynamics_tpu_torch as port
 from mcmc_dynamics_tpu_torch import convert, ops, sampler
-from mcmc_dynamics_tpu_torch.models import ModelFit
+from mcmc_dynamics_tpu_torch.background import SingleStars
+from mcmc_dynamics_tpu_torch.models import ConstantFit, ConstantFitGB, ModelFit
 
 data, truth = port.make_mock_cluster(n_stars=300, seed=1)
 params = ModelFit.default_parameters()
@@ -25,7 +29,32 @@ params["dec_center"].set(value=truth["dec_center"], fixed=True)
 fit = ModelFit(data, parameters=params, seed=2, device="cpu")
 lnp = fit.batched_lnprob()(torch.as_tensor(fit.get_initials(4)))
 assert lnp.shape == (4,), lnp.shape
+
+free = ModelFit(data, seed=2, device="cpu")
+assert free.lnprob_tier() == "freecenter", free.lnprob_tier()
+pos = free.get_initials(4)
+pos[:, 6:] = truth["ra_center"], truth["dec_center"]
+assert free.batched_lnprob()(torch.as_tensor(pos)).shape == (4,)
+
+table = data.data
+table["density"] = np.full(300, 2.0)
+table["pmember"] = np.full(300, 0.6)
+gb_params = ConstantFitGB.default_parameters()
+gb_params["ra_center"].set(value=truth["ra_center"], fixed=True)
+gb_params["dec_center"].set(value=truth["dec_center"], fixed=True)
+gb = ConstantFitGB(data, parameters=gb_params, device="cpu")
+assert gb.lnprob_tier() == "gb"
+assert torch.isfinite(gb.batched_lnprob()(torch.as_tensor(gb.get_initials(4)))).all()
+
+background = SingleStars(np.random.default_rng(0).normal(30, 40, 200), device="cpu")
+mix = ConstantFit(data, parameters=ConstantFit.default_parameters(), device="cpu",
+                  background=background)
+assert mix._host_arrays["lnlike_background"].shape == (300,)
+
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+loaded = sorted(m for m in sys.modules
+                if m == "mcmc_dynamics_tpu" or m.startswith("mcmc_dynamics_tpu."))
+assert not loaded, loaded
 print("ok")
 """
 

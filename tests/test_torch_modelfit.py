@@ -1,5 +1,5 @@
 """The torch ModelFit against the JAX package's (``models/model.py``), and the
-whole slice: the fixed-centre omega Cen recipe end to end on the CPU.
+whole first slice: the fixed-centre omega Cen recipe end to end on the CPU.
 
 Float64 on the CPU; every comparison states its tolerance.
 """
@@ -22,8 +22,8 @@ CANONICAL = ["v_sys", "sigma_max", "a", "v_maxx", "v_maxy", "r_peak"]
 
 
 def _data(n_stars, seed=15):
-    from mcmc_dynamics_tpu import units as u
-    from mcmc_dynamics_tpu.utils import DataReader
+    """The port's catalog; ``_jax_data`` gives the JAX package's twin."""
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
 
     rng = np.random.default_rng(seed)
     return DataReader({
@@ -33,10 +33,25 @@ def _data(n_stars, seed=15):
         "verr": u.Quantity(0.5 + 0.5 * rng.random(n_stars), "km/s")})
 
 
-def _params(bounded=True, free_centre=False, fix=()):
-    from mcmc_dynamics_tpu.parameters import Parameters
+def _jax_data(data):
+    """The JAX package's DataReader with the same columns as a port one."""
+    from mcmc_dynamics_tpu import units as ju
+    from mcmc_dynamics_tpu.utils import DataReader as JaxDataReader
 
-    p = Parameters().load(REPO / "mcmc_dynamics_tpu" / "config" / "model.json")
+    table = data.data
+    return JaxDataReader({name: ju.Quantity(table.columns[name],
+                                            ju.parse_unit(table.units[name].name or None))
+                          for name in table.colnames})
+
+
+def _params(bounded=True, free_centre=False, fix=(), package="port"):
+    if package == "port":
+        from mcmc_dynamics_tpu_torch.parameters import Parameters
+        config = REPO / "mcmc_dynamics_tpu_torch" / "config" / "model.json"
+    else:
+        from mcmc_dynamics_tpu.parameters import Parameters
+        config = REPO / "mcmc_dynamics_tpu" / "config" / "model.json"
+    p = Parameters().load(config)
     if not free_centre:
         p["ra_center"].set(value=RA_C, fixed=True)
         p["dec_center"].set(value=DEC_C, fixed=True)
@@ -53,7 +68,7 @@ def _pair(n_stars, **kw):
     from mcmc_dynamics_tpu_torch.models import ModelFit
 
     data = _data(n_stars)
-    return (JaxModelFit(data, parameters=_params(**kw), seed=3),
+    return (JaxModelFit(_jax_data(data), parameters=_params(package="jax", **kw), seed=3),
             ModelFit(data, parameters=_params(**kw), seed=3, device="cpu"))
 
 
@@ -114,16 +129,15 @@ def test_dispatch_picks_the_jax_tier(n_stars, bounded, mode, monkeypatch):
 
 
 def test_unported_tiers_raise(monkeypatch):
-    """A sampled centre (kernel 3) and the binned tier (kernel 9, >= 16384
-    stars with unbounded a/r_peak priors) raise instead of running another
-    tier."""
+    """The binned tier (kernel 9, >= 16384 stars with unbounded a/r_peak
+    priors) raises instead of running another tier; a sampled centre (kernel
+    3) is ported and builds its tier."""
     from mcmc_dynamics_tpu_torch.models import ModelFit
 
     free = ModelFit(_data(200), parameters=_params(free_centre=True),
                     device="cpu")
     assert free.lnprob_tier() == "freecenter"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        free.batched_lnprob()
+    assert callable(free.batched_lnprob())
     monkeypatch.setenv("MCMC_TPU_LNPROB", "auto")
     big = ModelFit(_data(16384), parameters=_params(bounded=False), device="cpu")
     assert big.lnprob_tier() == "sufficient"
@@ -142,13 +156,21 @@ def test_no_silent_cpu(monkeypatch):
 
 # ------------------------------------------------------------------ the whole slice
 def _recipe_fit():
-    """example/omega_cen_fixed.json, set up as cli/run.py does."""
-    from mcmc_dynamics_tpu.cli.run import load_catalog
+    """example/omega_cen_fixed.json, set up as cli/run.py does (the catalog
+    read with numpy, as chip_smoke.py reads it)."""
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
     from mcmc_dynamics_tpu_torch.models import ModelFit
 
     cfg = json.loads((REPO / "example" / "omega_cen_fixed.json").read_text())
-    cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
-    data = load_catalog(cfg["data"])
+    path = REPO / cfg["data"]["file"]
+    header = path.read_text().splitlines()[0].split(",")
+    table = np.loadtxt(path, delimiter=",", skiprows=1)
+    col = {name: table[:, i] for i, name in enumerate(header)}
+    v_sys = float(cfg["data"].get("v_sys") or 0.0)
+    data = DataReader({"ra": u.Quantity(col["ra"], "deg"),
+                       "dec": u.Quantity(col["dec"], "deg"),
+                       "v": u.Quantity(col["v"] - v_sys, "km/s"),
+                       "verr": u.Quantity(col["verr"], "km/s")})
     params = ModelFit.default_parameters()
     for name, spec in cfg["parameters"].items():
         params[name].set(**spec)
@@ -167,7 +189,8 @@ def test_omega_cen_fixed_recipe_lands_in_goldens(tmp_path):
     jparams = JaxModelFit.default_parameters()
     for name, spec in cfg["parameters"].items():
         jparams[name].set(**spec)
-    jfit = JaxModelFit(fit.data, parameters=jparams, seed=sampling["seed"])
+    jfit = JaxModelFit(_jax_data(fit.data), parameters=jparams,
+                       seed=sampling["seed"])
     np.testing.assert_array_equal(fit.get_initials(8), jfit.get_initials(8))
 
     fit, cfg = _recipe_fit()

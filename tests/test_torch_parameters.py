@@ -1,5 +1,7 @@
 """Torch parameters and expressions against the JAX package's
-(``mcmc_dynamics_tpu/parameters.py`` ``CompiledParameters``, ``compile_jax``).
+(``mcmc_dynamics_tpu/parameters.py`` ``CompiledParameters``, ``compile_jax``),
+and the port's own copies of ``Parameters``, the bundled parameter files and
+the expression validator against the originals.
 
 Float64 on the CPU; every comparison states its tolerance.
 """
@@ -13,16 +15,21 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from mcmc_dynamics_tpu.expressions import ExpressionError, compile_jax
+from mcmc_dynamics_tpu.expressions import ExpressionError as JaxExpressionError
+from mcmc_dynamics_tpu.expressions import compile_jax
 from mcmc_dynamics_tpu.parameters import CompiledParameters as JaxCompiled
 from mcmc_dynamics_tpu.parameters import Parameters
-from mcmc_dynamics_tpu_torch.expressions import compile_torch
+from mcmc_dynamics_tpu_torch.convert import parameters_from_reference
+from mcmc_dynamics_tpu_torch.expressions import ExpressionError, compile_torch
 from mcmc_dynamics_tpu_torch.parameters import CompiledParameters
+from mcmc_dynamics_tpu_torch.parameters import Parameters as PortParameters
 
 torch.set_num_threads(1)
 
 CONFIG_DIR = pathlib.Path(__file__).resolve().parents[1] / "mcmc_dynamics_tpu" / "config"
 CONFIGS = sorted(p.name for p in CONFIG_DIR.glob("*.json"))
+PORT_CONFIG_DIR = (pathlib.Path(__file__).resolve().parents[1]
+                   / "mcmc_dynamics_tpu_torch" / "config")
 RTOL = 1e-12        # same float64 formulas in both packages
 
 
@@ -58,9 +65,13 @@ def _thetas(params, n, seed):
     return np.column_stack(cols)
 
 
+def _port(params):
+    return CompiledParameters(parameters_from_reference(params), "cpu", torch.float64)
+
+
 def _compare(params, n=64, seed=0):
     jc = JaxCompiled(params)
-    tc = CompiledParameters(params, "cpu", torch.float64)
+    tc = _port(params)
     thetas = _thetas(params, n, seed)
     want_lp = np.asarray(jax.vmap(jc.lnprior)(jnp.asarray(thetas)))
     got_lp = tc.lnprior(torch.as_tensor(thetas)).numpy()
@@ -99,7 +110,7 @@ def test_sample_initials_identical(config):
         return p
 
     want = JaxCompiled(load()).sample_initials(16)
-    got = CompiledParameters(load(), "cpu", torch.float64).sample_initials(16)
+    got = _port(load()).sample_initials(16)
     np.testing.assert_array_equal(got, want)
 
 
@@ -112,14 +123,14 @@ def test_sample_initials_identical(config):
     "'text'",
 ])
 def test_malicious_expressions_rejected(source):
-    with pytest.raises(ExpressionError):
+    with pytest.raises(JaxExpressionError):
         compile_jax(source, allowed={"val"})({"val": 1.0})
     with pytest.raises(ExpressionError):
         compile_torch(source, allowed={"val"})({"val": torch.ones(3)})
 
 
 def test_attribute_escape_rejected_in_compiled_prior():
-    p = Parameters(rng_seed=1)
+    p = PortParameters(rng_seed=1)
     p.add("x", value=0.0, min=-1.0, max=1.0, lnprior="val.__class__")
     tc = CompiledParameters(p, "cpu", torch.float64)
     with pytest.raises(ExpressionError):
@@ -129,8 +140,38 @@ def test_attribute_escape_rejected_in_compiled_prior():
 def test_scale_factors_and_pack_match_jax():
     params = Parameters().load(CONFIG_DIR / "model.json")
     jc = JaxCompiled(params)
-    tc = CompiledParameters(params, "cpu", torch.float64)
+    tc = _port(params)
     units = {"a": "arcmin", "r_peak": "arcmin", "v_sys": "km/s"}
     assert tc.scale_factors(units) == jc.scale_factors(units)
     values = {n: float(i) for i, n in enumerate(tc.free_names)}
     np.testing.assert_array_equal(tc.pack(values), jc.pack(values))
+
+
+# ------------------------------------------------------------------ the port's copies
+@pytest.mark.parametrize("config", sorted(p.name for p in PORT_CONFIG_DIR.glob("*.json")))
+def test_port_config_is_the_reference_file(config):
+    """The bundled parameter files of the port are the reference's, byte for
+    byte, and load to the same parameters (native JSON identical)."""
+    assert (PORT_CONFIG_DIR / config).read_bytes() == (CONFIG_DIR / config).read_bytes()
+    port = PortParameters().load(PORT_CONFIG_DIR / config)
+    ref = Parameters().load(CONFIG_DIR / config)
+    port.reseed(3)
+    ref.reseed(3)
+    assert port.dumps() == ref.dumps()
+
+
+@pytest.mark.parametrize("fmt", ["native", "reference"])
+def test_parameters_copy_round_trips_like_jax(fmt):
+    """parameters_from_reference, set(), copy() and both JSON schemas give the
+    JAX package's serialisation exactly, RNG state included."""
+    jp = _expr_params(seed=7)
+    jp["y"].set(value=4.0, max=9.0)
+    jp["x"].set(fixed=True)
+    pp = parameters_from_reference(jp)
+    assert pp.dumps(format=fmt) == jp.dumps(format=fmt)
+    assert pp.copy().dumps(format=fmt) == jp.copy().dumps(format=fmt)
+    assert pp.free_names == jp.free_names
+    assert pp.fingerprint() == jp.fingerprint()
+    assert pp.eval("y * 2 + f") == jp.eval("y * 2 + f")
+    loaded = PortParameters().loads(jp.dumps(format=fmt))
+    assert loaded.dumps(format=fmt) == jp.dumps(format=fmt)

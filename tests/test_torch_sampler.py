@@ -21,21 +21,26 @@ RA_C, DEC_C = 56.345, -26.675
 
 
 def _fits(n_stars=200, seed=2):
-    """The same small ModelFit in both packages (fixed centre)."""
-    from mcmc_dynamics_tpu import units as u
+    """The same small ModelFit in both packages (fixed centre): one catalog
+    made with numpy, and one JAX parameter set carried into the port by
+    ``convert.parameters_from_reference``."""
+    from mcmc_dynamics_tpu import units as ju
     from mcmc_dynamics_tpu.models import ModelFit as JaxModelFit
-    from mcmc_dynamics_tpu.utils import DataReader
+    from mcmc_dynamics_tpu.utils import DataReader as JaxDataReader
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
+    from mcmc_dynamics_tpu_torch.convert import parameters_from_reference
     from mcmc_dynamics_tpu_torch.models import ModelFit
 
     rng = np.random.default_rng(seed)
-    data = DataReader({
-        "ra": u.Quantity(RA_C + 0.01 * rng.normal(size=n_stars), "deg"),
-        "dec": u.Quantity(DEC_C + 0.01 * rng.normal(size=n_stars), "deg"),
-        "v": u.Quantity(8.0 * rng.normal(size=n_stars), "km/s"),
-        "verr": u.Quantity(0.5 + rng.random(n_stars), "km/s")})
+    columns = {"ra": (RA_C + 0.01 * rng.normal(size=n_stars), "deg"),
+               "dec": (DEC_C + 0.01 * rng.normal(size=n_stars), "deg"),
+               "v": (8.0 * rng.normal(size=n_stars), "km/s"),
+               "verr": (0.5 + rng.random(n_stars), "km/s")}
+    data = JaxDataReader({n: ju.Quantity(*col) for n, col in columns.items()})
+    port_data = DataReader({n: u.Quantity(*col) for n, col in columns.items()})
 
     def params():
-        p = ModelFit.default_parameters()
+        p = JaxModelFit.default_parameters()
         p["ra_center"].set(value=RA_C, fixed=True)
         p["dec_center"].set(value=DEC_C, fixed=True)
         p["sigma_max"].set(initials="rng.uniform(6, 10, size=n)")
@@ -44,7 +49,8 @@ def _fits(n_stars=200, seed=2):
         return p
 
     return (JaxModelFit(data, parameters=params(), seed=5),
-            ModelFit(data, parameters=params(), seed=5, device="cpu"))
+            ModelFit(port_data, parameters=parameters_from_reference(params()),
+                     seed=5, device="cpu"))
 
 
 @pytest.fixture(scope="module")
