@@ -32,7 +32,18 @@ calls, and fails (non-zero exit) if any phase does:
 12. main path E1, ConstantFitGB on a contaminated mock catalog (16384 members
     + 4096 field stars) through kernel 5, recovery of the truth;
 13. main path E2, ConstantFit with a SingleStars background on the same
-    catalog: kernel 10 at construction, kernel 4 while sampling.
+    catalog: kernel 10 at construction, kernel 4 while sampling;
+14. kernel 6 (ModelFit density mixture) with its Gaussian background and 15.
+    with a fixed per-star background, 16. kernel 7 (DoubleModelFit) and 17.
+    kernel 8 (DoubleModelFitGB) against their float64 plain versions at 16384
+    walkers x 1e4 stars and at their path's half-ensemble;
+18. main path F1, ModelFitGB on a contaminated catalog with rotating members
+    through kernel 6, recovery of the truth;
+19. main path F2, ModelFitConstantBackground with a SingleStars background on
+    the same catalog: kernel 10 at construction, kernel 6 while sampling;
+20. main path G1, DoubleModelFit on the omega Cen catalog through kernel 7,
+    with a bitwise resume;
+21. main path G2, DoubleModelFitGB on path F's catalog through kernel 8.
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
@@ -79,8 +90,11 @@ FP32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # (FP32 flops, SFU operations) per (walker, star) or (target, catalog) pair,
 # counted from each kernel's source (an FMA is two flops)
+# (an IEEE division as one reciprocal on the unit and its refinement, 8 flops)
 PAIR_COST = {"model_lnlike": (18, 3), "model_freecenter": (36, 3),
              "constant_mixture": (17, 4), "constant_gb": (30, 7),
+             "model_mixture": (37, 8), "model_mixture_lnb": (30, 6),
+             "double_model": (42, 5), "double_model_gb": (60, 10),
              "background_lse": (10, 1)}
 
 
@@ -669,25 +683,26 @@ def phase_freecenter_path(device):
 # to; a float64 CPU run of the JAX package on the same catalog
 # (chip_smoke_reference.py) lands well inside them.
 E_TRUTH = dict(v_sys=0.0, sigma_max=12.0, v_back=40.0, sigma_back=50.0, f_back=1.0)
-E_BOUNDS = dict(v_sys=("abs", 0.5), sigma_max=("rel", 0.05), v_back=("abs", 3.0),
-                sigma_back=("rel", 0.10))
+TRUTH_BOUNDS = dict(v_sys=("abs", 0.5), sigma_max=("rel", 0.05), v_back=("abs", 3.0),
+                    sigma_back=("rel", 0.10), v_max=("abs", 1.0))
 
 
 def contaminated_catalog(seed=21, n_members=16384, n_field=4096,
-                         n_field_catalog=8192):
+                         n_field_catalog=8192, v_max=0.0, a=1e6, theta_0=None):
     """Path E's catalog, as numpy columns: ``make_mock_cluster`` members with a
     near-constant dispersion (a = 1e6 arcsec) and no rotation, plus field
     stars uniform over the same disk (r < 300 arcsec) with v ~ N(40, 50^2) and
     errors drawn as the members' are.  ``density`` is the members' surface
     density at the star's radius over the field's, so the true f_back is 1;
     ``pmember`` is density / (density + 1).  Also returns ``n_field_catalog``
-    fresh draws of the field's velocity law (the SingleStars catalog)."""
+    fresh draws of the field's velocity law (the SingleStars catalog).  Paths
+    F and G pass rotating members (``v_max``, ``a``, ``theta_0``)."""
     from math import erf
 
     from mcmc_dynamics_tpu_torch import make_mock_cluster
 
-    data, truth = make_mock_cluster(n_stars=n_members, sigma_max=12.0, v_max=0.0,
-                                    a=1e6, seed=seed)
+    data, truth = make_mock_cluster(n_stars=n_members, sigma_max=12.0, v_max=v_max,
+                                    a=a, theta_0=theta_0, seed=seed)
     table = data.data
     ra_c, dec_c = truth["ra_center"], truth["dec_center"]
     r_max = truth["r_peak"] * 5.0                     # make_mock_cluster's cut
@@ -696,7 +711,7 @@ def contaminated_catalog(seed=21, n_members=16384, n_field=4096,
     phi = rng.uniform(-math.pi, math.pi, n_field)
     ra_f = ra_c - (r_f / 3600.0) * np.cos(phi) / math.cos(math.radians(dec_c))
     dec_f = dec_c + (r_f / 3600.0) * np.sin(phi)
-    sigma_los = 12.0 / (1.0 + (r_f / 1e6) ** 2) ** 0.25
+    sigma_los = 12.0 / (1.0 + (r_f / a) ** 2) ** 0.25
     verr_f = 0.1 * sigma_los * rng.lognormal(0.0, 0.5, size=n_field)
     v_f = rng.normal(40.0, 50.0, n_field) + verr_f * rng.normal(size=n_field)
     ra = np.concatenate([table.value("ra", "deg"), ra_f])
@@ -736,25 +751,30 @@ def contaminated_params(parameters, gb):
 
 def check_truth(label, values, truth, keys):
     for key in keys:
-        kind, tol = E_BOUNDS[key]
+        kind, tol = TRUTH_BOUNDS[key]
         off = values[key] - truth[key]
         if (abs(off) if kind == "abs" else abs(off / truth[key])) > tol:
             raise AssertionError(f"{label}: {key} median {values[key]:.5g} vs truth "
                                  f"{truth[key]} (bound {kind} {tol})")
 
 
+def port_reader(columns):
+    """The port's DataReader of ``{name: (values, unit or None)}`` columns."""
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
+
+    return DataReader({name: (u.Quantity(values, unit) if unit else values)
+                       for name, (values, unit) in columns.items()})
+
+
 def phase_contaminated(device, path, columns, field_catalog, truth, n_walkers=256,
                        n_steps=400):
     """Main path E1 (ConstantFitGB through kernel 5) or E2 (ConstantFit with a
     SingleStars background: kernel 10 at construction, kernel 4 after)."""
-    from mcmc_dynamics_tpu_torch import DataReader, units as u
     from mcmc_dynamics_tpu_torch.background import SingleStars
     from mcmc_dynamics_tpu_torch.models import ConstantFit, ConstantFitGB
 
     gb = path == "E1"
-    names = [n for n in columns if gb or n != "density"]
-    data = DataReader({n: (u.Quantity(columns[n][0], columns[n][1]) if columns[n][1]
-                           else columns[n][0]) for n in names})
+    data = port_reader({n: c for n, c in columns.items() if gb or n != "density"})
     t0 = time.perf_counter()
     if gb:
         fit = ConstantFitGB(data, parameters=contaminated_params(
@@ -776,6 +796,202 @@ def phase_contaminated(device, path, columns, field_catalog, truth, n_walkers=25
     check_truth(f"path {path}", values, truth, keys)
     return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps, setup_s=setup_s,
                 s_per_step=seconds / n_steps, evals_per_s=n_walkers * n_steps / seconds,
+                acceptance=float(np.mean(run.acceptance_fraction)), medians=values,
+                fit=fit)
+
+
+# ----------------------------------------------------------------------------- slice 3
+def radial_inputs(device, kind):
+    """Kernels 6, 7 and 8 (``kind``: "model_mixture", "model_mixture_lnb",
+    "double_model" or "double_model_gb"): star offsets within ~5 arcmin,
+    Gaussian velocities and errors; walker 0 has sigma_max = 0 and walker 1
+    a = 0.  The mixtures add a density column with one zero density (clamped
+    to 1e-300, 0 in float32), walkers 2 and 3 at f_back = 0 and a float32
+    normaliser clamp for the float64 plain version; the double models give
+    walker 4 a second component at v_max = 0."""
+    import torch
+
+    def make(shape):
+        n_walkers, n_stars, n_pad = shape
+        rng = np.random.default_rng(n_walkers + 2)
+        dx, dy = rng.normal(0, 3, (2, n_stars))
+        v = 10 * rng.normal(size=n_stars)
+        verr2 = rng.uniform(0.5, 2.0, n_stars) ** 2
+        w = n_walkers
+        params = [rng.uniform(-5, 5, w), rng.uniform(5, 30, w), rng.uniform(0.5, 10, w),
+                  rng.uniform(-10, 10, w), rng.uniform(-10, 10, w),
+                  rng.uniform(0.5, 10, w)]
+        if kind.startswith("double"):
+            params += [rng.uniform(-5, 5, w), rng.uniform(-5, 5, w),
+                       rng.uniform(0.2, 5, w)]
+        kw, kw64, extra = {}, {}, ()
+        if kind != "double_model":
+            density = np.maximum(10.0 ** rng.uniform(-1, 2, n_stars), 1e-300)
+            density[3] = 1e-300
+            extra = (density, np.log(density))
+            background = [rng.normal(40, 5, w), rng.uniform(30, 70, w),
+                          10.0 ** rng.uniform(-1, 1, w)]
+            params += background[2:] if kind == "model_mixture_lnb" else background
+            kw64 = dict(tiny=float(torch.finfo(torch.float32).tiny))
+        if kind.startswith("model_mixture"):
+            lnb = -0.5 * (np.log(2 * math.pi * (verr2 + 2500.0))
+                          + (v - 40.0) ** 2 / (verr2 + 2500.0))
+            extra += (lnb,)
+            kw = dict(parametric_bg=kind == "model_mixture")
+            kw64.update(kw)
+        params = np.column_stack(params)
+        params[0, 1] = 0.0
+        params[1, 2] = 0.0
+        if kind != "double_model":
+            params[2:4, -1] = 0.0
+        if kind.startswith("double"):
+            params[4, 6:8] = 0.0
+        stars = _padded(n_stars, n_pad, dx, dy, dx * dx + dy * dy, v, verr2, *extra)
+        return _on(device, params, *stars), kw, kw64, n_walkers * n_stars
+    return make
+
+
+def model_mixture_lnb(params, dxm, dym, r2, v, verr2, density, ln_density, lnb, mask,
+                      **kw):
+    """Kernel 6's wrapper with the fixed per-star background."""
+    from mcmc_dynamics_tpu_torch.ops import model_mixture_lnlike_batched
+
+    return model_mixture_lnlike_batched(params, dxm, dym, r2, v, verr2, density,
+                                        ln_density, lnb, mask, parametric_bg=False)
+
+
+# paths F and G2: path E's catalog with rotating members (seed 31)
+F_CATALOG = dict(seed=31, v_max=6.0, a=30.0, theta_0=1.0)
+# (model class, tier, seed, keys held to the truth) of each path
+RADIAL_PATHS = {
+    "F1": ("ModelFitGB", "model_mixture", 32,
+           ("v_sys", "sigma_max", "v_max", "v_back", "sigma_back")),
+    "F2": ("ModelFitConstantBackground", "model_mixture", 33,
+           ("v_sys", "sigma_max", "v_max")),
+    "G2": ("DoubleModelFitGB", "double_gb", 34,
+           ("v_sys", "sigma_max", "v_back", "sigma_back")),
+}
+
+
+# F2's sigma_max is held, with the same bound, to the JAX package's float64
+# median on the same set-up instead of the truth: that posterior sits 9 %
+# under the truth (a = 51 arcsec instead of 30), after 400 steps as after 2000
+# (chip_smoke_reference.py)
+HELD_TO_REFERENCE = {"F2": dict(sigma_max=10.881)}
+
+
+def second_component(parameters):
+    """Priors and initial walkers of a double model's second component,
+    inside the first (r_peak_c below every initial r_peak)."""
+    for name in ("v_maxx_c", "v_maxy_c"):
+        parameters[name].set(min=-30.0, max=30.0, initials="rng.normal(0, 1, size=n)")
+    parameters["r_peak_c"].set(min=1.0, max=1000.0, initials="rng.uniform(5, 30, size=n)")
+    return parameters
+
+
+def radial_params(parameters, path):
+    """Priors and initial walkers of paths F1, F2 and G2: path E's, finite
+    a and r_peak priors around the truth; F2 holds the unused v_back and
+    sigma_back fixed (its kernel layout); G2 keeps f_back <= 1 (its joint
+    prior)."""
+    contaminated_params(parameters, gb=path != "F2")
+    parameters["a"].set(min=1.0, max=1000.0, initials="rng.uniform(20, 40, size=n)")
+    parameters["r_peak"].set(min=1.0, max=1000.0, initials="rng.uniform(40, 80, size=n)")
+    if path == "F2":
+        parameters["v_back"].set(value=E_TRUTH["v_back"], fixed=True)
+        parameters["sigma_back"].set(value=E_TRUTH["sigma_back"], fixed=True)
+        parameters["f_back"].set(max=5.0, initials="rng.uniform(0.5, 2, size=n)")
+    if path == "G2":
+        second_component(parameters)
+        parameters["f_back"].set(max=1.0, initials="rng.uniform(0.5, 1, size=n)")
+    return parameters
+
+
+def radial_fit(models, reader, path, columns, background=None, **kw):
+    """Path F1, F2 or G2's fit through ``models`` (either package) on the
+    ``columns`` read by ``reader``; ``background``: F2's field model."""
+    name, _, seed, _ = RADIAL_PATHS[path]
+    cls = getattr(models, name)
+    data = reader({n: c for n, c in columns.items() if n != "pmember"})
+    if path == "F2":
+        kw["background"] = background
+    return cls(data, parameters=radial_params(cls.default_parameters(), path),
+               seed=seed, **kw)
+
+
+def radial_medians(chain, names, n_burn):
+    """Posterior medians, and that of v_max = hypot(v_maxx, v_maxy)."""
+    flat = chain[:, n_burn:, :].reshape(-1, chain.shape[-1])
+    out = dict(zip(names, (float(x) for x in np.median(flat, axis=0))))
+    out["v_max"] = float(np.median(np.hypot(flat[:, names.index("v_maxx")],
+                                            flat[:, names.index("v_maxy")])))
+    return out
+
+
+def phase_radial(device, path, columns, field_catalog, truth, n_walkers=256,
+                 n_steps=400):
+    """Main path F1 (ModelFitGB, kernel 6), F2 (ModelFitConstantBackground +
+    SingleStars: kernel 10 at construction, kernel 6 after) or G2
+    (DoubleModelFitGB, kernel 8); medians of the last half against the truth."""
+    from mcmc_dynamics_tpu_torch import models
+    from mcmc_dynamics_tpu_torch.background import SingleStars
+
+    _, tier, _, keys = RADIAL_PATHS[path]
+    t0 = time.perf_counter()
+    background = SingleStars(field_catalog, device=device) if path == "F2" else None
+    fit = radial_fit(models, port_reader, path, columns, background, device=device)
+    setup_s = time.perf_counter() - t0
+    if fit.lnprob_tier() != tier:
+        raise AssertionError(f"path {path} tier {fit.lnprob_tier()}, expected {tier}")
+    pos = fit.get_initials(n_walkers)
+    run, seconds = timed_run(fit, n_walkers=n_walkers, n_steps=n_steps, pos=pos,
+                             prefix=None)
+    values = radial_medians(run.chain, fit.fitted_parameters, n_steps // 2)
+    check_truth(f"path {path}", values, dict(truth, **HELD_TO_REFERENCE.get(path, {})),
+                keys)
+    return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps, setup_s=setup_s,
+                s_per_step=seconds / n_steps, evals_per_s=n_walkers * n_steps / seconds,
+                acceptance=float(np.mean(run.acceptance_fraction)),
+                medians={k: values[k] for k in keys}, fit=fit)
+
+
+# path G1 holds v_sys and sigma_max to the fixed-centre omega Cen bands: the
+# JAX package's float64 run of the same set-up meets them
+# (chip_smoke_reference.py)
+DOUBLE_RECIPE_KEYS = ("v_sys", "sigma_max")
+
+
+def double_recipe_params(parameters):
+    """Path G1's priors: omega_cen_fixed.json's specs and a second
+    component."""
+    for name, spec in json.loads(RECIPE.read_text())["parameters"].items():
+        parameters[name].set(**spec)
+    return second_component(parameters)
+
+
+def phase_double_recipe(device):
+    """Main path G1: DoubleModelFit on the omega Cen catalog and centre of
+    omega_cen_fixed.json through kernel 7, checkpointed and resumed bit for
+    bit."""
+    from mcmc_dynamics_tpu_torch.models import DoubleModelFit
+
+    cfg = json.loads(RECIPE.read_text())
+    sampling = cfg["sampling"]
+    fit = DoubleModelFit(read_catalog(cfg), seed=sampling["seed"], device=device,
+                         parameters=double_recipe_params(
+                             DoubleModelFit.default_parameters()))
+    if fit.lnprob_tier() != "double":
+        raise AssertionError(f"path G1 tier {fit.lnprob_tier()}, expected double")
+    n_walkers, n_steps = sampling["n_walkers"], sampling["n_steps"]
+    run, s_per_step = run_with_resume("G1", fit, n_walkers, n_steps, sampling["n_out"])
+    values = medians(run.chain, fit.fitted_parameters, sampling["n_burn"])
+    golden = json.loads(GOLDENS.read_text())["omega_cen_fixed"]
+    check_band("path G1", values, {k: golden[k] for k in DOUBLE_RECIPE_KEYS})
+    profile = fit.create_profiles(run.chain, n_burn=sampling["n_burn"])
+    if not np.isfinite(profile.value("v_rot")).all():
+        raise AssertionError("path G1: create_profiles not finite")
+    return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps,
+                s_per_step=s_per_step, evals_per_s=n_walkers / s_per_step,
                 acceptance=float(np.mean(run.acceptance_fraction)), medians=values,
                 fit=fit)
 
@@ -833,8 +1049,11 @@ def main(argv=None) -> int:
     from mcmc_dynamics_tpu_torch.ops import (
         KERNELS, background_logsumexp, background_logsumexp_reference,
         constant_gb_lnlike_batched, constant_gb_lnlike_reference,
-        constant_mixture_lnlike_reference, model_freecenter_lnlike_batched,
-        model_freecenter_lnlike_reference)
+        constant_mixture_lnlike_reference, double_model_gb_lnlike_batched,
+        double_model_gb_lnlike_reference, double_model_lnlike_batched,
+        double_model_lnlike_reference, model_freecenter_lnlike_batched,
+        model_freecenter_lnlike_reference, model_mixture_lnlike_batched,
+        model_mixture_lnlike_reference)
 
     def drive(label, fn, expect):
         """Run one main path with every launch count at 0 before it; the
@@ -918,6 +1137,44 @@ def main(argv=None) -> int:
     path_line(13, "E2 (ConstantFit + SingleStars, kernels 10 and 4)", path_e2,
               f" | set-up with the KDE {path_e2['setup_s']:.3f} s")
 
+    big, half = (16384, 10_000, 240), (128, 20_480, 0)
+    model_mixture = pair_kernel_phase(
+        14, "model_mixture", model_mixture_lnlike_batched, model_mixture_lnlike_reference,
+        radial_inputs(device, "model_mixture"), (big, half), DIRECT_TOL, rows_k=8,
+        cols_k=9)
+    pair_kernel_phase(
+        15, "model_mixture_lnb", model_mixture_lnb, model_mixture_lnlike_reference,
+        radial_inputs(device, "model_mixture_lnb"), (big, half), DIRECT_TOL, rows_k=9,
+        cols_k=7)
+    double = pair_kernel_phase(
+        16, "double_model", double_model_lnlike_batched, double_model_lnlike_reference,
+        radial_inputs(device, "double_model"), (big, (32, 6284, 0)), DIRECT_TOL,
+        rows_k=6, cols_k=9)
+    double_gb = pair_kernel_phase(
+        17, "double_model_gb", double_model_gb_lnlike_batched,
+        double_model_gb_lnlike_reference, radial_inputs(device, "double_model_gb"),
+        (big, half), DIRECT_TOL, rows_k=8, cols_k=12)
+
+    f_columns, f_field, f_truth = contaminated_catalog(**F_CATALOG)
+
+    def radial_path(phase, path, label, expect):
+        out = drive(path, lambda: phase_radial(device, path, f_columns, f_field,
+                                               f_truth), expect)
+        truth = dict({k: f_truth[k] for k in RADIAL_PATHS[path][3]},
+                     **HELD_TO_REFERENCE.get(path, {}))
+        path_line(phase, label, out, f" | set-up {out['setup_s']:.3f} s | truth {truth}")
+        return out
+
+    radial = {"F1": radial_path(18, "F1", "F1 (ModelFitGB, kernel 6)", {"model_mixture"}),
+              "F2": radial_path(19, "F2", "F2 (ModelFitConstantBackground + "
+                                "SingleStars, kernels 10 and 6)",
+                                {"background_lse", "model_mixture"})}
+    path_g1 = drive("G1", lambda: phase_double_recipe(device), {"double_model"})
+    path_line(20, "G1 (DoubleModelFit on the omega Cen catalog, kernel 7)", path_g1,
+              " | goldens ok (v_sys, sigma_max: fixed-centre band) | bitwise resume ok")
+    radial["G2"] = radial_path(21, "G2", "G2 (DoubleModelFitGB, kernel 8)",
+                               {"double_model_gb"})
+
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
@@ -927,7 +1184,11 @@ def main(argv=None) -> int:
                 ("B", mock_fit, 1024, ["model_tensor_kernel"]),
                 ("C", fit_c, 64, []), ("D", fit_d, 64, ["model_freecenter_kernel"]),
                 ("E1", path_e1["fit"], 256, ["constant_gb_kernel"]),
-                ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"])):
+                ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"]),
+                ("F1", radial["F1"]["fit"], 256, ["model_mixture_kernel"]),
+                ("F2", radial["F2"]["fit"], 256, ["model_mixture_kernel"]),
+                ("G1", path_g1["fit"], 64, ["double_model_kernel"]),
+                ("G2", radial["G2"]["fit"], 256, ["double_model_gb_kernel"])):
             pos = fit.get_initials(n_walkers)
             fit(n_walkers=n_walkers, n_steps=20, pos=pos, prefix=None)   # warm-up
             profile_path(label, lambda: fit(n_walkers=n_walkers, n_steps=100,
@@ -938,6 +1199,9 @@ def main(argv=None) -> int:
             ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0]),
             ("constant_mixture", "constant_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:148", mixture[0]),
             ("constant_gb", "constant_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:699", gb[0]),
+            ("model_mixture", "model_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:500", model_mixture[0]),
+            ("double_model", "double_model.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:605", double[0]),
+            ("double_model_gb", "double_model_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:807", double_gb[0]),
             ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0])]
     kernels = {"kernels": [
         {"name": name, "route": "cuda",

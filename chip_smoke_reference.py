@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The JAX package's answers on chip_smoke.py's paths D, E1 and E2.
+"""The JAX package's answers on chip_smoke.py's paths D, E1, E2, F1, F2, G1 and G2.
 
 Run from the root of the repository, on the CPU (float64):
 
-    python3 chip_smoke_reference.py
+    python3 chip_smoke_reference.py            # every path
+    python3 chip_smoke_reference.py F1 G1      # some of them
 
 It sets up each path as ``chip_smoke.py`` does (the same catalog, priors,
 initial walkers, walker and step counts) through the JAX package
@@ -11,10 +12,14 @@ initial walkers, walker and step counts) through the JAX package
 bounds ``chip_smoke.py`` holds the port to: path D (free-centre ModelFit on
 the omega Cen catalog) against the omega Cen goldens, and paths E1
 (ConstantFitGB) and E2 (ConstantFit with a SingleStars background) against
-the truth of the contaminated catalog.  This is where those bounds come from.
-The SingleStars background is evaluated by the port's float64 plain version
-of the KDE on the CPU (the same function; the JAX package's own numpy path
-would hold a 1.3 GB matrix at this size).
+the truth of the contaminated catalog, paths F1 (ModelFitGB), F2
+(ModelFitConstantBackground with a SingleStars background) and G2
+(DoubleModelFitGB) against the truth of the catalog with rotating members,
+and path G1 (DoubleModelFit on the omega Cen catalog) against the omega Cen
+goldens.  This is where those bounds come from.  The SingleStars background
+is evaluated by the port's float64 plain version of the KDE on the CPU (the
+same function; the JAX package's own numpy path would hold a 1.3 GB matrix at
+this size).
 """
 
 from __future__ import annotations
@@ -51,8 +56,8 @@ def recipe_columns(cfg):
             for name in ("ra", "dec", "v", "verr")}
 
 
-def report(label, fit, run, n_burn, seconds, check):
-    values = chip_smoke.medians(np.asarray(run.chain), fit.fitted_parameters, n_burn)
+def report(label, fit, run, n_burn, seconds, check, summarise=chip_smoke.medians):
+    values = summarise(np.asarray(run.chain), fit.fitted_parameters, n_burn)
     print(f"{label}: {json.dumps({k: round(v, 5) for k, v in values.items()})} | "
           f"{seconds:.1f} s on the CPU | {check(values)}")
 
@@ -85,11 +90,34 @@ def path_d():
            time.perf_counter() - t0, check)
 
 
-def path_e(which, columns, field_catalog, truth):
+def kde(field_catalog):
+    """SingleStars' log-likelihood through the port's float64 plain KDE."""
     import torch
 
-    from mcmc_dynamics_tpu.models import ConstantFit, ConstantFitGB
     from mcmc_dynamics_tpu_torch.ops import background_logsumexp_reference
+
+    catalog = torch.as_tensor(field_catalog)
+
+    def background(v, verr):
+        return background_logsumexp_reference(
+            catalog, torch.as_tensor(v.value), torch.as_tensor(verr.value)).numpy()
+    return background
+
+
+def truth_check(keys, truth):
+    def check(values):
+        out = []
+        for k in keys:
+            kind, tol = chip_smoke.TRUTH_BOUNDS[k]
+            off = values[k] - truth[k]
+            off = abs(off) if kind == "abs" else abs(off / truth[k])
+            out.append(f"{k} off by {off:.4g} ({kind}, bound {tol})")
+        return " ".join(out)
+    return check
+
+
+def path_e(which, columns, field_catalog, truth):
+    from mcmc_dynamics_tpu.models import ConstantFit, ConstantFitGB
 
     gb = which == "E1"
     names = [n for n in columns if gb or n != "density"]
@@ -98,32 +126,54 @@ def path_e(which, columns, field_catalog, truth):
         fit = ConstantFitGB(data, parameters=chip_smoke.contaminated_params(
             ConstantFitGB.default_parameters(), gb=True), seed=22)
     else:
-        catalog = torch.as_tensor(field_catalog)
-
-        def background(v, verr):
-            return background_logsumexp_reference(
-                catalog, torch.as_tensor(v.value), torch.as_tensor(verr.value)).numpy()
         fit = ConstantFit(data, parameters=chip_smoke.contaminated_params(
             ConstantFit.default_parameters(), gb=False), seed=23,
-            background=background)
+            background=kde(field_catalog))
     t0 = time.perf_counter()
     run = fit(n_walkers=256, n_steps=400, prefix=None)
     keys = ("v_sys", "sigma_max") + (("v_back", "sigma_back") if gb else ())
+    report(f"path {which} (JAX, float64, CPU)", fit, run, 200,
+           time.perf_counter() - t0, truth_check(keys, truth))
+
+
+def path_radial(which, columns, field_catalog, truth):
+    """Paths F1, F2 and G2 through the JAX package."""
+    import mcmc_dynamics_tpu.models as models
+
+    fit = chip_smoke.radial_fit(models, jax_reader, which, columns,
+                                kde(field_catalog) if which == "F2" else None)
+    t0 = time.perf_counter()
+    run = fit(n_walkers=256, n_steps=400, prefix=None)
+    report(f"path {which} (JAX, float64, CPU)", fit, run, 200,
+           time.perf_counter() - t0,
+           truth_check(chip_smoke.RADIAL_PATHS[which][3],
+                       dict(truth, **chip_smoke.HELD_TO_REFERENCE.get(which, {}))),
+           summarise=chip_smoke.radial_medians)
+
+
+def path_g1():
+    """Path G1 through the JAX package."""
+    from mcmc_dynamics_tpu.models import DoubleModelFit
+
+    cfg = json.loads(chip_smoke.RECIPE.read_text())
+    sampling = cfg["sampling"]
+    fit = DoubleModelFit(jax_reader(recipe_columns(cfg)), seed=sampling["seed"],
+                         parameters=chip_smoke.double_recipe_params(
+                             DoubleModelFit.default_parameters()))
+    t0 = time.perf_counter()
+    run = fit(n_walkers=sampling["n_walkers"], n_steps=sampling["n_steps"],
+              prefix=None)
+    bands = json.loads(chip_smoke.GOLDENS.read_text())["omega_cen_fixed"]
 
     def check(values):
-        out = []
-        for k in keys:
-            kind, tol = chip_smoke.E_BOUNDS[k]
-            off = values[k] - truth[k]
-            off = abs(off) if kind == "abs" else abs(off / truth[k])
-            out.append(f"{k} off by {off:.4g} ({kind}, bound {tol})")
-        return " ".join(out)
-    report(f"path {which} (JAX, float64, CPU)", fit, run, 200,
+        return " ".join(f"{k} {'in' if lo <= values[k] <= hi else 'OUTSIDE'} "
+                        f"[{lo}, {hi}]" for k, (lo, hi) in bands.items() if k in values)
+    report("path G1 (JAX, float64, CPU)", fit, run, sampling["n_burn"],
            time.perf_counter() - t0, check)
 
 
 def main():
-    which = sys.argv[1:] or ["D", "E1", "E2"]
+    which = sys.argv[1:] or ["D", "E1", "E2", "F1", "F2", "G1", "G2"]
     if "D" in which:
         path_d()
     if {"E1", "E2"} & set(which):
@@ -131,6 +181,14 @@ def main():
         for path in ("E1", "E2"):
             if path in which:
                 path_e(path, columns, field_catalog, truth)
+    if "G1" in which:
+        path_g1()
+    if {"F1", "F2", "G2"} & set(which):
+        columns, field_catalog, truth = chip_smoke.contaminated_catalog(
+            **chip_smoke.F_CATALOG)
+        for path in ("F1", "F2", "G2"):
+            if path in which:
+                path_radial(path, columns, field_catalog, truth)
     return 0
 
 

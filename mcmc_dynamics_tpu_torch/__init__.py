@@ -10,6 +10,11 @@ What runs today, sampled by the stretch-move ensemble:
 * the global :class:`~.models.ModelFit` (Lynden-Bell rotation + Plummer
   dispersion) with a fixed centre (the direct walker x star kernel and the
   tensor-Chebyshev table kernel) or a sampled centre (the free-centre kernel);
+* its field-star mixtures :class:`~.models.ModelFitGB` (a sampled Gaussian
+  background) and :class:`~.models.ModelFitConstantBackground` (a fixed
+  per-star background), both through the ModelFit density-mixture kernel;
+* the two-component :class:`~.models.DoubleModelFit` and
+  :class:`~.models.DoubleModelFitGB` (their own walker x star kernels);
 * the single-bin :class:`~.models.ConstantFit` (the sufficient-statistics tier,
   the fixed-background mixture kernel, or plain torch for a sampled centre)
   and :class:`~.models.ConstantFitGB` (the density-mixture kernel);
@@ -36,13 +41,16 @@ from .mock import make_mock_cluster
 from .parameters import Parameter, Parameters
 from .utils import DataReader, Table
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = ["units", "Parameter", "Parameters", "DataReader", "Table",
            "make_mock_cluster", "resolve_device", "default_dtype",
-           "ModelFit", "ConstantFit", "ConstantFitGB", "Gaussian", "SingleStars",
+           "ModelFit", "ModelFitGB", "ModelFitConstantBackground",
+           "DoubleModelFit", "DoubleModelFitGB", "ConstantFit", "ConstantFitGB",
+           "Gaussian", "SingleStars",
            "MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
-           "CONSTANT_GB", "BACKGROUND_LSE"]
+           "CONSTANT_GB", "MODEL_MIXTURE", "DOUBLE_MODEL", "DOUBLE_MODEL_GB",
+           "BACKGROUND_LSE"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -68,6 +76,9 @@ def default_dtype(device) -> torch.dtype:
 # the models, backgrounds and launch counters (after resolve_device and
 # default_dtype, which they import)
 from .background import Gaussian, SingleStars  # noqa: E402
-from .models import ConstantFit, ConstantFitGB, ModelFit  # noqa: E402
+from .models import (ConstantFit, ConstantFitGB, DoubleModelFit,  # noqa: E402
+                     DoubleModelFitGB, ModelFit, ModelFitConstantBackground,
+                     ModelFitGB)
 from .ops import (BACKGROUND_LSE, CONSTANT_GB, CONSTANT_MIXTURE,  # noqa: E402
-                  MODEL_FREECENTER, MODEL_LNLIKE, MODEL_TENSOR)
+                  DOUBLE_MODEL, DOUBLE_MODEL_GB, MODEL_FREECENTER, MODEL_LNLIKE,
+                  MODEL_MIXTURE, MODEL_TENSOR)

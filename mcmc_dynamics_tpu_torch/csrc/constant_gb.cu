@@ -11,9 +11,7 @@
 //   lnB  = ln N(v; v_back, verr2 + sigma_back^2)
 //   lnL += logaddexp(ln D + lnC, ln f_back + lnB) - log(max(D + f_back, FLT_MIN))
 //
-// ln f_back is -inf at f_back = 0, which the logaddexp handles; the clamp of
-// the normaliser must stay, since a density of 1e-300 is 0 in f32 and with
-// f_back = 0 the sum D + f_back is then exactly 0.
+// (density_mixture.cuh: ln f_back = -inf at f_back = 0, and the clamp).
 //
 // What bounds it on this card: the special-function unit.  A pair costs two
 // rsqrt, three log, one exp and one log1p (~7 SFU operations with the
@@ -24,15 +22,13 @@
 // lanes are selected away, never multiplied by 0, and the block sums come in
 // a fixed order (walker_reduce.cuh).
 
-#include <cfloat>
-
+#include "density_mixture.cuh"
 #include "walker_reduce.cuh"
 
 namespace {
 
 using walker_reduce::kThreads;
 using walker_reduce::kWarps;
-constexpr float kLog2Pi = 1.8378770664093453f;
 
 template <int TW>
 __global__ void __launch_bounds__(kThreads)
@@ -68,16 +64,9 @@ constant_gb_kernel(const float* __restrict__ params, int n_walkers,
 #pragma unroll
     for (int k = 0; k < TW; ++k) {
       const float d = vi - v_sys[k] - gxi * vx[k] - gyi * vy[k];
-      const float rs = rsqrtf(e2 + sigma2[k]);
-      const float dr = d * rs;
-      const float ln_c = logf(rs) - 0.5f * fmaf(dr, dr, kLog2Pi);
-      const float rb = rsqrtf(e2 + sb2[k]);
-      const float db = (vi - v_back[k]) * rb;
-      const float ln_b = logf(rb) - 0.5f * fmaf(db, db, kLog2Pi);
-      const float a = lndi + ln_c;
-      const float b = ln_f[k] + ln_b;
-      const float ln_s = logf(fmaxf(di + f_back[k], FLT_MIN));
-      const float t = fmaxf(a, b) + log1pf(expf(-fabsf(a - b))) - ln_s;
+      const float ln_c = density_mixture::log_gauss(d, rsqrtf(e2 + sigma2[k]));
+      const float ln_b = density_mixture::log_gauss(vi - v_back[k], rsqrtf(e2 + sb2[k]));
+      const float t = density_mixture::term(ln_c, ln_b, ln_f[k], f_back[k], di, lndi);
       acc[k] += on ? t : 0.0f;
     }
   }

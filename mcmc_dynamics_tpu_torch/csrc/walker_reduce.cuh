@@ -1,4 +1,4 @@
-// Shared pieces of the walker x star reductions (kernels 3, 4 and 5).
+// Shared pieces of the walker x star reductions (kernels 3 to 8).
 //
 // Layout common to them: one block of kThreads threads per tile of TW
 // walkers, the tile's per-walker constants in registers, threads striding over

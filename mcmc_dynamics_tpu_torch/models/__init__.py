@@ -1,5 +1,8 @@
 from .base import Runner, SamplerResult
 from .constant import ConstantFit, ConstantFitGB
-from .model import ModelFit
+from .double_model import DoubleModelFit, DoubleModelFitGB
+from .model import ModelFit, ModelFitConstantBackground, ModelFitGB
 
-__all__ = ["Runner", "SamplerResult", "ModelFit", "ConstantFit", "ConstantFitGB"]
+__all__ = ["Runner", "SamplerResult", "ModelFit", "ModelFitGB",
+           "ModelFitConstantBackground", "DoubleModelFit", "DoubleModelFitGB",
+           "ConstantFit", "ConstantFitGB"]

@@ -1,8 +1,9 @@
 """Model base class: host shell compiling data + parameters into a batched lnprob.
 
-Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (the subset the ModelFit
-and ConstantFit paths need).  Observables are converted to internal units on
-the host in float64 and then placed on the model's device in its working dtype.
+Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (the subset the ModelFit,
+ConstantFit and DoubleModelFit families need).  Observables are converted to
+internal units on the host in float64 and then placed on the model's device in
+its working dtype.
 A batched lnprob maps a (W, K) walker block to (W,); the sampler runs it on
 half-ensembles.  Checkpoints are ``.npz`` files with the reference's keys, so
 the JAX package reads the chains this package writes.
@@ -167,22 +168,39 @@ class Runner:
     def lnlike_terms(self, p, data):
         return torch.zeros_like(data["v"])
 
+    def lnlike_fn(self, p, data):
+        """Log-likelihood: the masked sum of the per-star terms."""
+        return masked_sum(self.lnlike_terms(p, data), data)
+
+    def extra_lnprior_fn(self, p):
+        """Hook for a model's joint prior in internal units: ``p`` as
+        :meth:`scaled_values` gives it ((W,) columns, floats for fixed
+        parameters); 0 or -inf per walker.  No joint prior by default."""
+        return 0.0
+
+    def _has_extra_lnprior(self) -> bool:
+        return type(self).extra_lnprior_fn is not Runner.extra_lnprior_fn
+
     def prepare_data(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Hook: precomputed columns that are static given the fixed parameters."""
         return data
 
     def build_lnprob_batched(self) -> Callable:
-        """Generic batched lnprob (W, K) -> (W,): expand, ``lnlike_terms``,
-        masked sum, in slices of ``lnprob_chunk`` walkers.  Plain torch: the
+        """Generic batched lnprob (W, K) -> (W,): expand, joint prior,
+        ``lnlike_fn``, in slices of ``lnprob_chunk`` walkers.  Plain torch: the
         reference leaves this path to XLA."""
         compiled = self.compiled
         data = self.prepare_data(dict(self._data_arrays))
+        extra = self._has_extra_lnprior()
 
         def one(thetas):
             lp = compiled.lnprior(thetas)
+            values = self.scaled_values(thetas)
+            if extra:
+                lp = lp + self.extra_lnprior_fn(values)
             p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
-                 for n, v in self.scaled_values(thetas).items()}
-            ll = masked_sum(self.lnlike_terms(p, data), data)
+                 for n, v in values.items()}
+            ll = self.lnlike_fn(p, data)
             return torch.where(torch.isfinite(lp), lp + ll,
                                torch.full_like(lp, -math.inf))
 
@@ -192,16 +210,50 @@ class Runner:
         return batched
 
     def _with_prior(self, lnlike: Callable) -> Callable:
-        """Batched lnprob = lnprior + ``lnlike(thetas)``, -inf wherever the
-        prior is (the likelihood tiers' common wrapper)."""
+        """Batched lnprob = lnprior (+ the joint prior, where the model has
+        one) + ``lnlike(thetas)``, -inf wherever the prior is (the likelihood
+        tiers' common wrapper)."""
         lnprior = self.compiled.lnprior
+        extra = self._has_extra_lnprior()
 
         def batched(thetas):
             lp = lnprior(thetas)
+            if extra:
+                lp = lp + self.extra_lnprior_fn(self.scaled_values(thetas))
             return torch.where(torch.isfinite(lp), lp + lnlike(thetas),
                                torch.full_like(lp, -math.inf))
 
         return batched
+
+    # ------------------------------------------------------------------ one walker
+    def _one_walker(self, theta) -> torch.Tensor:
+        """A parameter vector (K,) as a (1, K) batch on the model's device."""
+        if torch.is_tensor(theta):
+            theta = theta.to(device=self.device, dtype=self.dtype)
+        else:
+            theta = self._to_device(theta)
+        return theta.reshape(1, -1)
+
+    def lnprior(self, theta) -> torch.Tensor:
+        """Prior of one parameter vector (declared units), without the joint
+        prior, as in the reference (``base.py:320-321``)."""
+        return self.compiled.lnprior(self._one_walker(theta))[0]
+
+    def lnlike(self, theta) -> torch.Tensor:
+        """Log-likelihood of one parameter vector through ``lnlike_fn``."""
+        p = self.scaled_values(self._one_walker(theta))
+        return self.lnlike_fn(p, self.prepare_data(dict(self._data_arrays)))
+
+    def lnprob(self, theta) -> torch.Tensor:
+        """Log-posterior of one parameter vector: prior, joint prior and
+        ``lnlike_fn`` (the reference's per-walker closure, ``base.py:229-242``)."""
+        thetas = self._one_walker(theta)
+        lp = self.compiled.lnprior(thetas)
+        p = self.scaled_values(thetas)
+        lp = lp + self.extra_lnprior_fn(p)
+        ll = self.lnlike_fn(p, self.prepare_data(dict(self._data_arrays)))
+        return torch.where(torch.isfinite(lp), lp + ll,
+                           torch.full_like(lp, -math.inf))[0]
 
     def batched_lnprob(self) -> Callable:
         """The batched lnprob the sampler runs: ``build_lnprob_batched``,
@@ -575,6 +627,74 @@ def with_density_logs(data, density, to_device):
         data["density"] = to_device(dens)
         data["ln_density"] = to_device(np.log(dens))
     return data
+
+
+def log_indicator(ok, dtype, device) -> torch.Tensor:
+    """A joint prior's log: 0 where ``ok`` (a bool, or a bool tensor), -inf
+    elsewhere."""
+    ok = torch.as_tensor(ok, device=device)
+    return torch.zeros(ok.shape, dtype=dtype, device=device).masked_fill(~ok, -math.inf)
+
+
+def membership_from_terms(lnl_cluster, lnl_background, m) -> np.ndarray:
+    """A-posteriori membership per star, m e^{lnC} / (m e^{lnC} + (1 - m)
+    e^{lnB}), from per-star tensors, as a float64 array."""
+    lnl_c, lnl_b, m = (np.asarray(torch.as_tensor(t).cpu().numpy(), np.float64)
+                       for t in (lnl_cluster, lnl_background, m))
+    peak = np.maximum(lnl_c, lnl_b)
+    num = m * np.exp(lnl_c - peak)
+    return num / (num + (1.0 - m) * np.exp(lnl_b - peak))
+
+
+class GaussianBackgroundMixin:
+    """A sampled Gaussian field population in velocity space (``v_back``,
+    ``sigma_back``) mixed with the cluster through per-star density
+    membership priors ``m_i = density_i / (density_i + f_back)``: the pieces
+    ConstantFitGB, ModelFitGB and DoubleModelFitGB share (reference
+    ``constant.py:293-374``, ``model.py:443-476``).  Placed before the model
+    class in the bases."""
+
+    def __init__(self, data, parameters=None, **kwargs):
+        background = kwargs.pop("background", None)
+        if background is not None:
+            logger.error("Class %s does not support additional background "
+                         "components.", type(self).__name__)
+        super().__init__(data=data, parameters=parameters, **kwargs)
+
+    def prepare_data(self, data):
+        return with_density_logs(super().prepare_data(data),
+                                 self._host_arrays["density"], self._to_device)
+
+    def membership_prior(self, p, data):
+        return density_membership(data["density"], p["f_back"])
+
+    def cluster_background_terms(self, p, data):
+        """Per-star (cluster, background, membership-prior) triplet."""
+        v_los = self.rotation_field(p, data)
+        sigma_los = self.dispersion_field(p, data)
+        lnl_cluster = gaussian_lnlike_terms(data["v"], data["verr"], v_los, sigma_los)
+        lnl_back = gaussian_lnlike_terms(data["v"], data["verr"],
+                                         p["v_back"], p["sigma_back"])
+        return lnl_cluster, lnl_back, self.membership_prior(p, data)
+
+    def lnlike_terms(self, p, data):
+        lnl_cluster, lnl_back, m = self.cluster_background_terms(p, data)
+        if "ln_density" in data:
+            # log-space mixture off the f64-accurate ln_density: identical
+            # formula to the fused kernels, NaN-free at f_back = 0
+            return density_mixture_terms(data["density"], data["ln_density"],
+                                         p["f_back"], lnl_cluster, lnl_back)
+        return mixture_lnlike_terms(lnl_cluster, lnl_back, m)
+
+    def calculate_membership_probabilities(self, chain, n_burn):
+        """A-posteriori membership per star from the best-fit (median)
+        parameters, on the catalog's own columns (reference
+        ``model.py:468-476``), as a float64 array."""
+        bestfit = self.compute_bestfit_values(chain=chain, n_burn=n_burn)
+        theta = np.array([bestfit.value(n)[0] for n in self.fitted_parameters])
+        p = self.scaled_values(self._to_device(theta[None, :]))
+        return membership_from_terms(*self.cluster_background_terms(
+            p, self._data_arrays))
 
 
 def _sin(x):

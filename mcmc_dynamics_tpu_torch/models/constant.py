@@ -35,8 +35,8 @@ from ..ops.lnlike_kernels import (constant_gb_lnlike_batched,
                                   constant_mixture_lnlike_batched)
 from ..ops.sufficient import ConstantSufficientStats
 from ..utils.coordinates import xy_offset_rad
-from .base import (Runner, density_membership, density_mixture_terms,
-                   gaussian_lnlike_terms, mixture_lnlike_terms, with_density_logs)
+from .base import (GaussianBackgroundMixin, Runner, gaussian_lnlike_terms,
+                   mixture_lnlike_terms)
 
 logger = logging.getLogger(__name__)
 
@@ -157,12 +157,13 @@ class ConstantFit(Runner):
             thetas, gx, gy, v, verr2, lgp, lg1mp, lnb, mask))
 
 
-class ConstantFitGB(ConstantFit):
+class ConstantFitGB(GaussianBackgroundMixin, ConstantFit):
     """ConstantFit + parametric Gaussian background in velocity space.
 
     Adds ``v_back``/``sigma_back``/``f_back`` and the per-star membership prior
     ``m_i = density_i / (density_i + f_back)``; the two populations mix via a
-    per-star log-sum-exp (reference constant.py:293-364).
+    per-star log-sum-exp (reference constant.py:293-364,
+    :class:`~.base.GaussianBackgroundMixin`).
     """
 
     MODEL_PARAMETERS = ConstantFit.MODEL_PARAMETERS + ["v_back", "sigma_back", "f_back"]
@@ -173,51 +174,6 @@ class ConstantFitGB(ConstantFit):
 
     _CANONICAL_NAMES = ["v_sys", "sigma_max", "v_maxx", "v_maxy",
                         "v_back", "sigma_back", "f_back"]
-
-    def __init__(self, data, parameters=None, **kwargs):
-        background = kwargs.pop("background", None)
-        if background is not None:
-            logger.error("Class %s does not support additional background "
-                         "components.", type(self).__name__)
-        super().__init__(data=data, parameters=parameters, **kwargs)
-
-    def prepare_data(self, data):
-        return with_density_logs(super().prepare_data(data),
-                                 self._host_arrays["density"], self._to_device)
-
-    def membership_prior(self, p, data):
-        return density_membership(data["density"], p["f_back"])
-
-    def cluster_background_terms(self, p, data):
-        """Per-star (cluster, background, membership-prior) triplet."""
-        v_los = self.rotation_field(p, data)
-        sigma_los = self.dispersion_field(p, data)
-        lnl_cluster = gaussian_lnlike_terms(data["v"], data["verr"], v_los, sigma_los)
-        lnl_back = gaussian_lnlike_terms(data["v"], data["verr"],
-                                         p["v_back"], p["sigma_back"])
-        return lnl_cluster, lnl_back, self.membership_prior(p, data)
-
-    def lnlike_terms(self, p, data):
-        lnl_cluster, lnl_back, m = self.cluster_background_terms(p, data)
-        if "ln_density" in data:
-            # log-space mixture off the f64-accurate ln_density: identical
-            # formula to the fused kernel, NaN-free at f_back = 0
-            return density_mixture_terms(data["density"], data["ln_density"],
-                                         p["f_back"], lnl_cluster, lnl_back)
-        return mixture_lnlike_terms(lnl_cluster, lnl_back, m)
-
-    def calculate_membership_probabilities(self, chain, n_burn):
-        """A-posteriori membership per star from the best-fit (median)
-        parameters (reference constant.py:366-374), as a float64 array."""
-        bestfit = self.compute_bestfit_values(chain=chain, n_burn=n_burn)
-        theta = np.array([bestfit.value(n)[0] for n in self.fitted_parameters])
-        p = self.scaled_values(self._to_device(theta[None, :]))
-        lnl_c, lnl_b, m = self.cluster_background_terms(p, self._data_arrays)
-        lnl_c, lnl_b, m = (np.asarray(t.cpu().numpy(), np.float64)
-                           for t in (lnl_c, lnl_b, m))
-        peak = np.maximum(lnl_c, lnl_b)
-        num = m * np.exp(lnl_c - peak)
-        return num / (num + (1.0 - m) * np.exp(lnl_b - peak))
 
     # ------------------------------------------------------------------ dispatch
     def _canonical_layout(self) -> bool:

@@ -20,6 +20,12 @@ the same 16384-star threshold and the same ``MCMC_TPU_LNPROB`` semantics:
 
 The radially-binned table tier (``sufficient``) is not ported yet and raises
 ``NotImplementedError`` instead of running another tier in its place.
+
+The field-star mixtures ``ModelFitGB`` (a sampled Gaussian background) and
+``ModelFitConstantBackground`` (a fixed per-star background) take the
+``model_mixture`` tier (kernel 6) for their canonical layout and ``generic``
+otherwise: a density mixture is not quadratic in the parameters, so neither
+table tier applies to them, at any catalog size.
 """
 
 from __future__ import annotations
@@ -34,13 +40,17 @@ import torch
 from .. import units as u
 from ..utils.table import Table
 from ..ops.lnlike_kernels import (model_freecenter_lnlike_batched,
-                                  model_lnlike_batched)
+                                  model_lnlike_batched, model_mixture_lnlike_batched)
 from ..ops.model_tensor import ModelTensorStats, model_tensor_lnlike
-from .base import Runner, gaussian_lnlike_terms, mixture_lnlike_terms
+from ..utils.coordinates import xy_offset_rad
+from .base import (GaussianBackgroundMixin, Runner, density_membership,
+                   density_mixture_terms, gaussian_lnlike_terms,
+                   masked_sum, membership_from_terms, mixture_lnlike_terms,
+                   with_density_logs)
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ModelFit"]
+__all__ = ["ModelFit", "ModelFitGB", "ModelFitConstantBackground"]
 
 _ARCMIN_PER_RAD = 10800.0 / np.pi
 # auto mode: catalogs of this many stars and more take the table tiers
@@ -83,7 +93,13 @@ class ModelFit(Runner):
     def _offsets_arcmin(self, p, data):
         if "dxm" in data:
             return data["dxm"], data["dym"]
-        return self.freecenter_offsets_arcmin(p, data)
+        if "fc_dx0" in data:
+            return self.freecenter_offsets_arcmin(p, data)
+        # the catalog's own columns (a-posteriori membership)
+        ra_c, dec_c = (torch.as_tensor(p[n], dtype=self.dtype, device=self.device)
+                       for n in ("ra_center", "dec_center"))
+        dx, dy = xy_offset_rad(data["ra"], data["dec"], ra_c, dec_c, xp=torch)
+        return dx * _ARCMIN_PER_RAD, dy * _ARCMIN_PER_RAD
 
     def rotation_field(self, p, data):
         dx, dy = self._offsets_arcmin(p, data)
@@ -178,16 +194,22 @@ class ModelFit(Runner):
         rp_scale = self.compiled.scale_factors({"r_peak": "arcmin"})["r_peak"]
         return self._to_device([1.0, 1.0, a_scale, 1.0, 1.0, rp_scale])
 
-    def build_lnprob_direct(self):
-        """Batched lnprob through the direct walker x star kernel."""
+    def _fixed_star_rows(self):
+        """The walker x star kernels' common rows for the fixed centre:
+        (dxm, dym, r2, v, verr2, mask), the offsets and their squares from
+        float64 on the host."""
         dx, dy = self._fixed_offsets_arcmin()
         dxm, dym, r2 = (self._to_device(t) for t in (dx, dy, dx * dx + dy * dy))
         v = self._data_arrays["v"]
         verr2 = self._to_device(self._host_arrays["verr"] ** 2)
-        mask = torch.ones_like(v)
+        return dxm, dym, r2, v, verr2, torch.ones_like(v)
+
+    def build_lnprob_direct(self):
+        """Batched lnprob through the direct walker x star kernel."""
+        rows = self._fixed_star_rows()
         col_scale = self._internal_col_scale()
         return self._with_prior(lambda thetas: model_lnlike_batched(
-            thetas * col_scale, dxm, dym, r2, v, verr2, mask))
+            thetas * col_scale, *rows))
 
     def _freecenter_col_transform(self, ra0: float, dec0: float):
         """(shift, scale) turning a free-centre theta into the kernel's
@@ -259,6 +281,11 @@ class ModelFit(Runner):
         return batched
 
     # ------------------------------------------------------------------ post-processing
+    def rotation_profile(self, flat, radii):
+        """Rotation-curve samples (radii, samples) of the posterior ``flat``."""
+        return lynden_bell_profile(flat["v_maxx"], flat["v_maxy"], flat["r_peak"],
+                                   radii.to(self.parameters["r_peak"].unit).value)
+
     def create_profiles(self, chains, n_burn, radii=None, filename=None) -> Table:
         """Posterior -> radial v_rot / sigma profiles with 1- and 3-sigma bands,
         vectorised over all posterior samples (host NumPy)."""
@@ -276,10 +303,7 @@ class ModelFit(Runner):
             radii = u.Quantity(np.logspace(-1, 2.5, 50), u.arcsec)
         radii = u.Quantity(radii, u.arcsec) if not isinstance(radii, u.Quantity) else radii
 
-        r = radii.to(self.parameters["r_peak"].unit).value[:, None]
-        v_max = np.sqrt(flat["v_maxx"] ** 2 + flat["v_maxy"] ** 2)
-        v_rot = 2.0 * (v_max / flat["r_peak"]) * r / (1.0 + (r / flat["r_peak"]) ** 2)
-
+        v_rot = self.rotation_profile(flat, radii)
         r_a = radii.to(self.parameters["a"].unit).value[:, None]
         sigma = flat["sigma_max"] / (1.0 + r_a ** 2 / flat["a"] ** 2) ** 0.25
 
@@ -298,3 +322,135 @@ class ModelFit(Runner):
         if filename is not None:
             profile.write(filename, fmt="ascii.ecsv", overwrite=True)
         return profile
+
+
+def lynden_bell_profile(vx, vy, r_peak, r):
+    """2 (v_max / r_peak) r / (1 + (r / r_peak)^2) at radii ``r`` (R,) for
+    posterior samples (S,): (R, S)."""
+    r = np.asarray(r)[:, None]
+    v_max = np.sqrt(vx ** 2 + vy ** 2)
+    return 2.0 * (v_max / r_peak) * r / (1.0 + (r / r_peak) ** 2)
+
+
+class _ModelMixtureKernelMixin:
+    """Tier dispatch shared by the two density-mixture ModelFit variants
+    (reference ``model.py:479-569``): kernel 6 for the canonical layout,
+    plain torch otherwise; never the table tiers (a density mixture is not
+    quadratic in the parameters)."""
+
+    _KERNEL_FREE_NAMES: list  # canonical free layout served by the kernel
+    _PARAMETRIC_BG: bool
+
+    def _canonical_layout(self) -> bool:
+        # exact-type guard: a subclass overriding dispersion_field /
+        # rotation_field / membership_prior must never inherit the hardcoded
+        # Plummer + Lynden-Bell kernel
+        return (type(self) in (ModelFitGB, ModelFitConstantBackground)
+                and self.center_is_fixed()
+                and self.compiled.free_names == self._KERNEL_FREE_NAMES)
+
+    def lnprob_tier(self) -> str:
+        """``"model_mixture"`` (kernel 6) for the canonical layout (centre
+        fixed, the kernel's 9 or 7 free columns, the exact class), else
+        ``"generic"``."""
+        return "model_mixture" if self._canonical_layout() else "generic"
+
+    def build_lnprob_batched(self):
+        tier = self.lnprob_tier()
+        logger.info("%s lnprob tier: %s", type(self).__name__, tier)
+        if tier == "generic":
+            return Runner.build_lnprob_batched(self)
+        return self.build_lnprob_model_mixture()
+
+    def build_lnprob_model_mixture(self):
+        """Batched lnprob through kernel 6: ``a`` and ``r_peak`` scaled to
+        arcmin, the background columns as they are."""
+        dxm, dym, r2, v, verr2, mask = self._fixed_star_rows()
+        data = self.prepare_data(dict(self._data_arrays))
+        density, ln_density = data["density"], data["ln_density"]
+        lnb = data.get("lnlike_fixed_background", torch.zeros_like(v))
+        n_extra = len(self._KERNEL_FREE_NAMES) - 6
+        col_scale = torch.cat([self._internal_col_scale(),
+                               torch.ones(n_extra, dtype=self.dtype, device=self.device)])
+        parametric = self._PARAMETRIC_BG
+        return self._with_prior(lambda thetas: model_mixture_lnlike_batched(
+            thetas * col_scale, dxm, dym, r2, v, verr2, density, ln_density, lnb,
+            mask, parametric_bg=parametric))
+
+
+class ModelFitGB(_ModelMixtureKernelMixin, GaussianBackgroundMixin, ModelFit):
+    """ModelFit + a sampled Gaussian field population in velocity space
+    (``v_back``, ``sigma_back``), mixed through per-star density membership
+    priors ``density / (density + f_back)``."""
+
+    MODEL_PARAMETERS = ModelFit.MODEL_PARAMETERS + ["v_back", "sigma_back", "f_back"]
+    OBSERVABLES = dict(ModelFit.OBSERVABLES, density=None)
+    INTERNAL_UNITS = dict(ModelFit.INTERNAL_UNITS, v_back="km/s", sigma_back="km/s")
+    parameters_file = "model_with_background.json"
+    _KERNEL_FREE_NAMES = ["v_sys", "sigma_max", "a", "v_maxx", "v_maxy", "r_peak",
+                          "v_back", "sigma_back", "f_back"]
+    _PARAMETRIC_BG = True
+
+
+class ModelFitConstantBackground(_ModelMixtureKernelMixin, ModelFit):
+    """ModelFit + a non-parametric fixed background: the per-star background
+    log-likelihoods come once, in float64 on the host, from the
+    ``background`` callable; only the mixing weight ``f_back`` is sampled
+    (reference ``model.py:589-643``).
+
+    It shares ``model_with_background.json`` with ModelFitGB, whose
+    ``v_back`` and ``sigma_back`` it does not use: left free (the default)
+    they are sampled under their priors alone and the layout takes the
+    ``generic`` tier; fix them to reach kernel 6.
+    """
+
+    MODEL_PARAMETERS = ModelFit.MODEL_PARAMETERS + ["f_back"]
+    OBSERVABLES = dict(ModelFit.OBSERVABLES, density=None)
+    parameters_file = "model_with_background.json"
+    _KERNEL_FREE_NAMES = ["v_sys", "sigma_max", "a", "v_maxx", "v_maxy", "r_peak",
+                          "f_back"]
+    _PARAMETRIC_BG = False
+
+    def __init__(self, data, background, parameters=None, **kwargs):
+        super().__init__(data=data, parameters=parameters, **kwargs)
+        self.fixed_background = background
+        lnl_back = np.asarray(background(data.data["v"], data.data["verr"]),
+                              dtype=np.float64)
+        self._data_arrays["lnlike_fixed_background"] = self._to_device(lnl_back)
+
+    def prepare_data(self, data):
+        return with_density_logs(super().prepare_data(data),
+                                 self._host_arrays["density"], self._to_device)
+
+    def membership_prior(self, p, data):
+        return density_membership(data["density"], p["f_back"])
+
+    def lnlike_terms(self, p, data):
+        v_los = self.rotation_field(p, data)
+        sigma_los = self.dispersion_field(p, data)
+        lnl_cluster = gaussian_lnlike_terms(data["v"], data["verr"], v_los, sigma_los)
+        if "ln_density" in data:
+            return density_mixture_terms(data["density"], data["ln_density"],
+                                         p["f_back"], lnl_cluster,
+                                         data["lnlike_fixed_background"])
+        return mixture_lnlike_terms(lnl_cluster, data["lnlike_fixed_background"],
+                                    self.membership_prior(p, data))
+
+    def lnlike_fn(self, p, data, no_sum: bool = False):
+        """The masked sum of the per-star terms, or with ``no_sum`` the terms
+        themselves (reference ``model.py:624-628``)."""
+        terms = self.lnlike_terms(p, data)
+        return terms if no_sum else masked_sum(terms, data)
+
+    def calculate_membership_probabilities(self, chain, n_burn):
+        """A-posteriori membership per star from the best-fit (median)
+        parameters against the fixed background, as a float64 array."""
+        bestfit = self.compute_bestfit_values(chain=chain, n_burn=n_burn)
+        theta = np.array([bestfit.value(n)[0] for n in self.fitted_parameters])
+        p = self.scaled_values(self._to_device(theta[None, :]))
+        data = self._data_arrays
+        lnl_c = gaussian_lnlike_terms(data["v"], data["verr"],
+                                      self.rotation_field(p, data),
+                                      self.dispersion_field(p, data))
+        return membership_from_terms(lnl_c, data["lnlike_fixed_background"],
+                                     self.membership_prior(p, data))

@@ -7,14 +7,21 @@ first time a CUDA tensor reaches its wrapper.
 
 from .background_kernel import (BACKGROUND_LSE, background_logsumexp,
                                 background_logsumexp_reference)
-from .lnlike_kernels import (CONSTANT_GB, CONSTANT_MIXTURE, MODEL_FREECENTER,
-                             MODEL_LNLIKE, constant_gb_lnlike_batched,
+from .lnlike_kernels import (CONSTANT_GB, CONSTANT_MIXTURE, DOUBLE_MODEL,
+                             DOUBLE_MODEL_GB, MODEL_FREECENTER, MODEL_LNLIKE,
+                             MODEL_MIXTURE, constant_gb_lnlike_batched,
                              constant_gb_lnlike_reference,
                              constant_mixture_lnlike_batched,
                              constant_mixture_lnlike_reference,
+                             double_model_gb_lnlike_batched,
+                             double_model_gb_lnlike_reference,
+                             double_model_lnlike_batched,
+                             double_model_lnlike_reference,
                              model_freecenter_lnlike_batched,
                              model_freecenter_lnlike_reference,
-                             model_lnlike_batched, model_lnlike_reference)
+                             model_lnlike_batched, model_lnlike_reference,
+                             model_mixture_lnlike_batched,
+                             model_mixture_lnlike_reference)
 from .model_tensor import MODEL_TENSOR, ModelTensorStats, model_tensor_lnlike
 from .sufficient import ConstantSufficientStats
 
@@ -22,14 +29,20 @@ from .sufficient import ConstantSufficientStats
 KERNELS = {"model_lnlike": MODEL_LNLIKE, "model_tensor": MODEL_TENSOR,
            "model_freecenter": MODEL_FREECENTER,
            "constant_mixture": CONSTANT_MIXTURE, "constant_gb": CONSTANT_GB,
+           "model_mixture": MODEL_MIXTURE, "double_model": DOUBLE_MODEL,
+           "double_model_gb": DOUBLE_MODEL_GB,
            "background_lse": BACKGROUND_LSE}
 
 __all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
-           "CONSTANT_GB", "BACKGROUND_LSE", "KERNELS", "ModelTensorStats",
+           "CONSTANT_GB", "MODEL_MIXTURE", "DOUBLE_MODEL", "DOUBLE_MODEL_GB",
+           "BACKGROUND_LSE", "KERNELS", "ModelTensorStats",
            "ConstantSufficientStats",
            "model_lnlike_batched", "model_lnlike_reference",
            "model_freecenter_lnlike_batched", "model_freecenter_lnlike_reference",
            "constant_mixture_lnlike_batched", "constant_mixture_lnlike_reference",
            "constant_gb_lnlike_batched", "constant_gb_lnlike_reference",
+           "model_mixture_lnlike_batched", "model_mixture_lnlike_reference",
+           "double_model_lnlike_batched", "double_model_lnlike_reference",
+           "double_model_gb_lnlike_batched", "double_model_gb_lnlike_reference",
            "background_logsumexp", "background_logsumexp_reference",
            "model_tensor_lnlike"]

@@ -1,6 +1,6 @@
 """Walker x star likelihood reductions: CUDA kernels and their plain versions.
 
-Counterparts of four functions of ``mcmc_dynamics_tpu/ops/lnlike_kernels.py``:
+Counterparts of seven functions of ``mcmc_dynamics_tpu/ops/lnlike_kernels.py``:
 
 * :func:`model_lnlike_batched` — the fixed-centre ModelFit likelihood
   (kernel 1, ``csrc/model_lnlike.cu``);
@@ -10,7 +10,15 @@ Counterparts of four functions of ``mcmc_dynamics_tpu/ops/lnlike_kernels.py``:
 * :func:`constant_mixture_lnlike_batched` — ConstantFit mixed with a fixed
   per-star background (kernel 4, ``csrc/constant_mixture.cu``);
 * :func:`constant_gb_lnlike_batched` — ConstantFitGB's density mixture with a
-  sampled Gaussian background (kernel 5, ``csrc/constant_gb.cu``).
+  sampled Gaussian background (kernel 5, ``csrc/constant_gb.cu``);
+* :func:`model_mixture_lnlike_batched` — kernel 1's member branch in the same
+  density mixture, with a sampled Gaussian or a fixed per-star background
+  (kernel 6, ``csrc/model_mixture.cu``);
+* :func:`double_model_lnlike_batched` — the two-component DoubleModelFit
+  likelihood (kernel 7, ``csrc/double_model.cu``);
+* :func:`double_model_gb_lnlike_batched` — kernel 7's member branch in the
+  density mixture with a sampled Gaussian background (kernel 8,
+  ``csrc/double_model_gb.cu``).
 
 Each CUDA source says in its header what bounds it and how it is laid out.
 Each ``*_reference`` function is the same arithmetic in plain torch: it is what
@@ -34,7 +42,13 @@ __all__ = ["model_lnlike_batched", "model_lnlike_reference", "MODEL_LNLIKE",
            "constant_mixture_lnlike_batched", "constant_mixture_lnlike_reference",
            "CONSTANT_MIXTURE",
            "constant_gb_lnlike_batched", "constant_gb_lnlike_reference",
-           "CONSTANT_GB"]
+           "CONSTANT_GB",
+           "model_mixture_lnlike_batched", "model_mixture_lnlike_reference",
+           "MODEL_MIXTURE",
+           "double_model_lnlike_batched", "double_model_lnlike_reference",
+           "DOUBLE_MODEL",
+           "double_model_gb_lnlike_batched", "double_model_gb_lnlike_reference",
+           "DOUBLE_MODEL_GB"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -48,12 +62,16 @@ CONSTANT_MIXTURE = Kernel("constant_mixture_launch",
                           [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 CONSTANT_GB = Kernel("constant_gb_launch",
                      [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+MODEL_MIXTURE = Kernel("model_mixture_launch", [_P, _I] + [_P] * 9 + [_I, _I, _P])
+DOUBLE_MODEL = Kernel("double_model_launch", [_P, _I] + [_P] * 6 + [_I, _P])
+DOUBLE_MODEL_GB = Kernel("double_model_gb_launch", [_P, _I] + [_P] * 8 + [_I, _P])
 
 
 # ----------------------------------------------------------------- plain versions
-def _model_terms_sum(p, dx, dy, r2, v, verr2, mask):
-    """Kernel 1's per-pair body, summed over stars: ``p`` (W, K, 1) columns
-    (v_sys, sigma_max, a, v_maxx, v_maxy, r_peak, ...), offsets (W or 1, N)."""
+def _model_pair(p, dx, dy, r2, v, verr2):
+    """Kernel 1's per-pair body: (d^2 / (q^2 n), n) for ``p`` (W, K, 1)
+    columns (v_sys, sigma_max, a, v_maxx, v_maxy, r_peak, ...) and offsets
+    (W or 1, N)."""
     v_sys, sigma2 = p[:, 0], p[:, 1] * p[:, 1]
     inv_a2 = 1.0 / (p[:, 2] * p[:, 2])
     vx2, vy2 = 2.0 * p[:, 3], 2.0 * p[:, 4]
@@ -62,9 +80,19 @@ def _model_terms_sum(p, dx, dy, r2, v, verr2, mask):
     d = q * (v_sys - v) + (dy * vx2 - dx * vy2)
     norm = verr2 + sigma2 * torch.rsqrt(1.0 + r2 * inv_a2)
     t = d * torch.rsqrt(q * q * norm)
-    on = mask > 0
-    terms = torch.where(on, t * t + torch.log(norm), torch.zeros_like(t))
+    return t * t, norm
+
+
+def _gaussian_sum(quad, norm, mask):
+    """-1/2 sum_i [quad_i + log n_i] - 1/2 (sum_i m_i) log(2 pi), masked
+    lanes selected away."""
+    terms = torch.where(mask > 0, quad + torch.log(norm), torch.zeros_like(quad))
     return -0.5 * (terms.sum(dim=1) + mask.sum() * _LOG_2PI)
+
+
+def _model_terms_sum(p, dx, dy, r2, v, verr2, mask):
+    """Kernel 1's per-pair body, summed over stars."""
+    return _gaussian_sum(*_model_pair(p, dx, dy, r2, v, verr2), mask)
 
 
 def model_lnlike_reference(params, dxm, dym, r2, v, verr2, mask):
@@ -157,15 +185,91 @@ def constant_gb_lnlike_reference(params, gx, gy, v, verr2, density, ln_density,
     handled by the logaddexp.
     """
     p = params[:, :, None]
-    if tiny is None:
-        tiny = torch.finfo(params.dtype).tiny
     d = v - p[:, 0] - gx * p[:, 2] - gy * p[:, 3]
     ln_c = _log_gauss(d, verr2 + p[:, 1] * p[:, 1])
     lnl_b = _log_gauss(v - p[:, 4], verr2 + p[:, 5] * p[:, 5])
-    f_back = p[:, 6]
+    return _density_mixture_sum(ln_c, lnl_b, p[:, 6], density, ln_density, mask,
+                                _tiny(params, tiny))
+
+
+def _tiny(params, tiny):
+    return torch.finfo(params.dtype).tiny if tiny is None else tiny
+
+
+def _density_mixture_sum(ln_c, lnl_b, f_back, density, ln_density, mask, tiny):
+    """sum_i logaddexp(ln D_i + ln_c, ln f + lnl_b) - ln max(D_i + f, tiny),
+    masked lanes selected away (the density mixtures' common tail)."""
     ln_s = torch.log(torch.clamp(density + f_back, min=tiny))
     t = _logaddexp_terms(ln_density + ln_c, torch.log(f_back) + lnl_b) - ln_s
     return torch.where(mask > 0, t, torch.zeros_like(t)).sum(dim=1)
+
+
+def model_mixture_lnlike_reference(params, dxm, dym, r2, v, verr2, density,
+                                   ln_density, lnb, mask, parametric_bg: bool,
+                                   tiny=None):
+    """Plain torch version of kernel 6: kernel 1's member branch as a
+    log-density per pair, ``-1/2 (d^2 / (q^2 n) + log n + log 2 pi)``, in
+    kernel 5's density mixture (``tiny`` as there).
+
+    ``parametric_bg=True`` (ModelFitGB): params (W, 9) columns (v_sys,
+    sigma_max, a, v_maxx, v_maxy, r_peak, v_back, sigma_back, f_back), the
+    background a Gaussian, ``lnb`` unused.  ``parametric_bg=False``
+    (ModelFitConstantBackground): params (W, 7) ending in f_back, and ``lnb``
+    the per-star background log-likelihood.
+    """
+    p = params[:, :, None]
+    quad, norm = _model_pair(p, dxm, dym, r2, v, verr2)
+    ln_c = -0.5 * (quad + torch.log(norm) + _LOG_2PI)
+    if parametric_bg:
+        lnl_b = _log_gauss(v - p[:, 6], verr2 + p[:, 7] * p[:, 7])
+        f_back = p[:, 8]
+    else:
+        lnl_b, f_back = lnb, p[:, 6]
+    return _density_mixture_sum(ln_c, lnl_b, f_back, density, ln_density, mask,
+                                _tiny(params, tiny))
+
+
+def _double_pair(p, dx, dy, r2, v, verr2):
+    """Kernel 7's per-pair body: (d, n) with the reference's two Lynden-Bell
+    components, ``x = (dy vx - dx vy) / v_max`` and ``rot = c x / (rp^2 +
+    x^2)``, ``c = 2 rp v_max`` (``x_pa / r_peak`` in the denominator, as the
+    reference has it).  ``1 / v_max`` is ``rsqrt(vx^2 + vy^2 + 1e-30)``: a
+    component with v_max = 0 gives exactly 0 rotation, also in float32."""
+    def component(vx, vy, rp):
+        vmax2 = vx * vx + vy * vy + 1e-30
+        inv_vmax = torch.rsqrt(vmax2)
+        c = 2.0 * rp * vmax2 * inv_vmax
+        x = (dy * vx - dx * vy) * inv_vmax
+        return c * x / (rp * rp + x * x)
+
+    rot = component(p[:, 3], p[:, 4], p[:, 5]) + component(p[:, 6], p[:, 7], p[:, 8])
+    d = (p[:, 0] - v) + rot
+    inv_a2 = 1.0 / (p[:, 2] * p[:, 2])
+    norm = verr2 + p[:, 1] * p[:, 1] * torch.rsqrt(1.0 + r2 * inv_a2)
+    return d, norm
+
+
+def double_model_lnlike_reference(params, dxm, dym, r2, v, verr2, mask):
+    """Plain torch version of kernel 7: params (W, 9) columns (v_sys,
+    sigma_max, a, v_maxx, v_maxy, r_peak, v_maxx_c, v_maxy_c, r_peak_c) in
+    km/s and arcmin -> -1/2 sum_i [d_i^2 / n_i + log n_i] - 1/2 (sum_i m_i)
+    log(2 pi), with n = verr2 + sigma_max^2 / sqrt(1 + r2 / a^2)."""
+    d, norm = _double_pair(params[:, :, None], dxm, dym, r2, v, verr2)
+    dr = d * torch.rsqrt(norm)
+    return _gaussian_sum(dr * dr, norm, mask)
+
+
+def double_model_gb_lnlike_reference(params, dxm, dym, r2, v, verr2, density,
+                                     ln_density, mask, tiny=None):
+    """Plain torch version of kernel 8: kernel 7's member branch in kernel
+    5's density mixture; params (W, 12), kernel 7's nine columns then
+    (v_back, sigma_back, f_back) (``tiny`` as in kernel 5)."""
+    p = params[:, :, None]
+    d, norm = _double_pair(p, dxm, dym, r2, v, verr2)
+    ln_c = _log_gauss(d, norm)
+    lnl_b = _log_gauss(v - p[:, 9], verr2 + p[:, 10] * p[:, 10])
+    return _density_mixture_sum(ln_c, lnl_b, p[:, 11], density, ln_density, mask,
+                                _tiny(params, tiny))
 
 
 # ----------------------------------------------------------------- wrappers
@@ -250,3 +354,42 @@ def constant_gb_lnlike_batched(params, gx, gy, v, verr2, density, ln_density, ma
                    [("gx", gx), ("gy", gy), ("v", v), ("verr2", verr2),
                     ("density", density), ("ln_density", ln_density),
                     ("mask", mask)])
+
+
+def model_mixture_lnlike_batched(params, dxm, dym, r2, v, verr2, density, ln_density,
+                                 lnb, mask, parametric_bg: bool):
+    """Fused (W, 9) or (W, 7) x N-star ModelFit density mixture -> (W,)
+    (kernel 6; ``parametric_bg`` as in :func:`model_mixture_lnlike_reference`,
+    whose plain version a CPU tensor takes).  The kernel reads ``lnb`` only
+    without the parametric background."""
+    if params.device.type == "cpu":
+        return model_mixture_lnlike_reference(params, dxm, dym, r2, v, verr2, density,
+                                              ln_density, lnb, mask, parametric_bg)
+    return _launch(MODEL_MIXTURE, "model_mixture_lnlike_batched", params,
+                   9 if parametric_bg else 7,
+                   [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v), ("verr2", verr2),
+                    ("density", density), ("ln_density", ln_density), ("lnb", lnb),
+                    ("mask", mask)], extra=(int(bool(parametric_bg)),))
+
+
+def double_model_lnlike_batched(params, dxm, dym, r2, v, verr2, mask):
+    """Fused (W, 9) x N-star DoubleModelFit log-likelihood -> (W,) (kernel 7);
+    a CPU tensor takes :func:`double_model_lnlike_reference`."""
+    if params.device.type == "cpu":
+        return double_model_lnlike_reference(params, dxm, dym, r2, v, verr2, mask)
+    return _launch(DOUBLE_MODEL, "double_model_lnlike_batched", params, 9,
+                   [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v),
+                    ("verr2", verr2), ("mask", mask)])
+
+
+def double_model_gb_lnlike_batched(params, dxm, dym, r2, v, verr2, density,
+                                   ln_density, mask):
+    """Fused (W, 12) x N-star DoubleModelFitGB density mixture -> (W,)
+    (kernel 8); a CPU tensor takes :func:`double_model_gb_lnlike_reference`."""
+    if params.device.type == "cpu":
+        return double_model_gb_lnlike_reference(params, dxm, dym, r2, v, verr2,
+                                                density, ln_density, mask)
+    return _launch(DOUBLE_MODEL_GB, "double_model_gb_lnlike_batched", params, 12,
+                   [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v),
+                    ("verr2", verr2), ("density", density),
+                    ("ln_density", ln_density), ("mask", mask)])

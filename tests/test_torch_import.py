@@ -2,8 +2,10 @@
 
 ``tests/conftest.py`` imports JAX into every test process, so the check runs in
 a fresh interpreter: it builds a fixed-centre and a free-centre ModelFit, a
-ConstantFitGB and a SingleStars background on the CPU, and then looks for
-``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in ``sys.modules``.
+ConstantFitGB, a SingleStars background, ModelFitGB,
+ModelFitConstantBackground, DoubleModelFit and DoubleModelFitGB on the CPU,
+and then looks for ``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in
+``sys.modules``.
 """
 
 import pathlib
@@ -20,7 +22,9 @@ torch.set_num_threads(1)
 import mcmc_dynamics_tpu_torch as port
 from mcmc_dynamics_tpu_torch import convert, ops, sampler
 from mcmc_dynamics_tpu_torch.background import SingleStars
-from mcmc_dynamics_tpu_torch.models import ConstantFit, ConstantFitGB, ModelFit
+from mcmc_dynamics_tpu_torch.models import (
+    ConstantFit, ConstantFitGB, DoubleModelFit, DoubleModelFitGB, ModelFit,
+    ModelFitConstantBackground, ModelFitGB)
 
 data, truth = port.make_mock_cluster(n_stars=300, seed=1)
 params = ModelFit.default_parameters()
@@ -50,6 +54,26 @@ background = SingleStars(np.random.default_rng(0).normal(30, 40, 200), device="c
 mix = ConstantFit(data, parameters=ConstantFit.default_parameters(), device="cpu",
                   background=background)
 assert mix._host_arrays["lnlike_background"].shape == (300,)
+
+for cls, tier, kw in ((ModelFitGB, "model_mixture", {}),
+                      (ModelFitConstantBackground, "model_mixture",
+                       {"background": port.Gaussian(30.0, 40.0)}),
+                      (DoubleModelFit, "double", {}),
+                      (DoubleModelFitGB, "double_gb", {})):
+    p = cls.default_parameters()
+    for name, value in (("ra_center", truth["ra_center"]),
+                        ("dec_center", truth["dec_center"]),
+                        ("v_back", 30.0), ("sigma_back", 40.0)):
+        if name in p and (name.endswith("center") or cls is ModelFitConstantBackground):
+            p[name].set(value=value, fixed=True)
+    for name in ("a", "r_peak"):
+        p[name].set(initials="rng.uniform(60, 120, size=n)")
+    if "r_peak_c" in p:
+        p["r_peak_c"].set(initials="rng.uniform(10, 50, size=n)")
+    model = cls(data, parameters=p, device="cpu", **kw)
+    assert model.lnprob_tier() == tier, (cls, model.lnprob_tier())
+    lnp = model.batched_lnprob()(torch.as_tensor(model.get_initials(4)))
+    assert torch.isfinite(lnp).all(), (cls, lnp)
 
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 loaded = sorted(m for m in sys.modules
