@@ -43,7 +43,18 @@ calls, and fails (non-zero exit) if any phase does:
     the same catalog: kernel 10 at construction, kernel 6 while sampling;
 20. main path G1, DoubleModelFit on the omega Cen catalog through kernel 7,
     with a bitwise resume;
-21. main path G2, DoubleModelFitGB on path F's catalog through kernel 8.
+21. main path G2, DoubleModelFitGB on path F's catalog through kernel 8;
+22. kernel 9 (the binned table tier) on path H's float32 tables at 16384
+    walkers and at the path's half-ensemble of 512, against its float64 plain
+    version, and the tables against the exact star sum;
+23. kernel 11 (the same function on the tensor cores, 3xTF32) at phase 22's
+    inputs, and on ``bench.py --validate``'s set-up at its matrix-unit gate;
+24. kernel 12 and 25. kernel 13 (the restructured density mixtures) against
+    their float64 plain versions at 16384 walkers x 1e4 stars and at 128 x
+    20480, beside kernels 5 and 6 on the same inputs;
+26. main path H, the binned tier: path B's 1e5-star mock with the default
+    unbounded a and r_peak priors, 1024 walkers x 200 steps through kernel 9,
+    recovery of the truth.
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
@@ -95,7 +106,11 @@ PAIR_COST = {"model_lnlike": (18, 3), "model_freecenter": (36, 3),
              "constant_mixture": (17, 4), "constant_gb": (30, 7),
              "model_mixture": (37, 8), "model_mixture_lnb": (30, 6),
              "double_model": (42, 5), "double_model_gb": (60, 10),
-             "background_lse": (10, 1)}
+             "background_lse": (10, 1),
+             # kernels 12 and 13: three logs/exps a pair, a quarter log for
+             # the product of four nb and a half for the two products of
+             # D + f, plus the reciprocals (two; three and an rsqrt for 13)
+             "constant_gb_v2": (47, 5.75), "model_gb_v2": (60, 7.75)}
 
 
 def bound_ms(n_bytes, flops, sfu):
@@ -228,26 +243,49 @@ def phase_direct_kernel(device, shapes=((16384, 10_000, 240), (32, 6284, 116))):
     return rows
 
 
-def mock_tensor_fit(device, n_stars, seed):
-    """ModelFit on a mock catalog with finite a/r_peak priors enclosing the
-    truth (the tensor tier's box) and near-truth initials."""
+def mock_catalog(n_stars, seed):
+    """Paths B and H's mock catalog (``make_mock_cluster``: sigma_max 12 km/s,
+    v_max 6 km/s, r_peak 60 and a 30 arcsec) as ``{name: (values, unit)}``
+    numpy columns, and its truth."""
     from mcmc_dynamics_tpu_torch import make_mock_cluster
-    from mcmc_dynamics_tpu_torch.models import ModelFit
 
     data, truth = make_mock_cluster(n_stars=n_stars, sigma_max=12.0, v_max=6.0,
                                     theta_0=0.8, r_peak=60.0, a=30.0, seed=seed)
-    params = ModelFit.default_parameters()
-    params["ra_center"].set(value=truth["ra_center"], fixed=True)
-    params["dec_center"].set(value=truth["dec_center"], fixed=True)
-    params["v_sys"].set(min=-20.0, max=20.0, initials="rng.normal(0, 0.5, size=n)")
-    params["sigma_max"].set(max=60.0, initials="rng.uniform(10.8, 13.2, size=n)")
-    params["v_maxx"].set(min=-30.0, max=30.0,
-                         initials="rng.normal(loc=0, scale=2, size=n)")
-    params["v_maxy"].set(min=-30.0, max=30.0,
-                         initials="rng.normal(loc=0, scale=2, size=n)")
-    params["a"].set(min=10.0, max=1000.0, initials="rng.uniform(24, 36, size=n)")
-    params["r_peak"].set(min=10.0, max=1000.0, initials="rng.uniform(48, 72, size=n)")
-    return ModelFit(data, parameters=params, seed=seed, device=device), truth
+    table = data.data
+    columns = {name: (table.value(name), table.units[name].name)
+               for name in ("ra", "dec", "v", "verr")}
+    return columns, truth
+
+
+def mock_params(parameters, truth, bounded):
+    """Paths B and H's priors (centre fixed at the truth, sigma_max <= 60 km/s)
+    and near-truth initials on ``parameters`` (either package's).  With
+    ``bounded`` a and r_peak get finite priors enclosing the truth (the tensor
+    tier's box, path B); without, they keep the parameter file's unbounded
+    ones (the binned tier, path H)."""
+    parameters["ra_center"].set(value=truth["ra_center"], fixed=True)
+    parameters["dec_center"].set(value=truth["dec_center"], fixed=True)
+    parameters["v_sys"].set(min=-20.0, max=20.0, initials="rng.normal(0, 0.5, size=n)")
+    parameters["sigma_max"].set(max=60.0, initials="rng.uniform(10.8, 13.2, size=n)")
+    parameters["v_maxx"].set(min=-30.0, max=30.0,
+                             initials="rng.normal(loc=0, scale=2, size=n)")
+    parameters["v_maxy"].set(min=-30.0, max=30.0,
+                             initials="rng.normal(loc=0, scale=2, size=n)")
+    box = dict(min=10.0, max=1000.0) if bounded else {}
+    parameters["a"].set(initials="rng.uniform(24, 36, size=n)", **box)
+    parameters["r_peak"].set(initials="rng.uniform(48, 72, size=n)", **box)
+    return parameters
+
+
+def mock_fit(device, n_stars, seed, bounded=True):
+    """ModelFit on the mock catalog: path B (``bounded``, the tensor tier) or
+    path H (the default unbounded a/r_peak priors, the binned tier)."""
+    from mcmc_dynamics_tpu_torch.models import ModelFit
+
+    columns, truth = mock_catalog(n_stars, seed)
+    params = mock_params(ModelFit.default_parameters(), truth, bounded)
+    return ModelFit(port_reader(columns), parameters=params, seed=seed,
+                    device=device), truth
 
 
 def box_params(stats, n_walkers, seed, device, dtype):
@@ -405,12 +443,13 @@ def phase_recipe(device):
                 s_per_step=s_per_step, acceptance=acc, medians=values)
 
 
-def phase_tensor_path(device, fit, truth, n_walkers=1024, n_steps=200):
-    """Main path B; returns its numbers."""
+def phase_table_path(device, fit, truth, tier, n_walkers=1024, n_steps=200):
+    """Main path B (``tier`` "tensor") or H ("sufficient"); returns its
+    numbers."""
     import torch
 
-    if fit.lnprob_tier() != "tensor":
-        raise AssertionError(f"tier {fit.lnprob_tier()}, expected tensor")
+    if fit.lnprob_tier() != tier:
+        raise AssertionError(f"tier {fit.lnprob_tier()}, expected {tier}")
     pos = fit.get_initials(n_walkers)
     t0 = time.perf_counter()
     fit.batched_lnprob()                    # set-up: the tables, built once
@@ -996,6 +1035,224 @@ def phase_double_recipe(device):
                 fit=fit)
 
 
+# ----------------------------------------------------------------------------- slice 4
+# bench.py --validate's gate for the matrix-unit form of the binned tier
+# (model/sufficient-mxu); the tier itself is held to TENSOR_TOL
+MXU_TOL = dict(rtol=2e-5, atol=0.05)
+# kernel 11's tensor-core rate: TF32 at 495 TFLOP/s dense (NVIDIA's H100 SXM
+# data sheet), a third of it for the three passes of 3xTF32
+TF32X3_FLOPS_PER_S = 495e12 / 3
+# per (walker, bin) besides the contraction's 2 D 61 flops, counted from
+# model_sufficient.cuh: the Taylor scalars, xi and combine() (~200 FP32
+# flops) and 4 special-function operations (rsqrt, two reciprocals, log)
+BIN_COST = (200, 4)
+
+
+def sufficient_bound(stats, n_walkers, mma):
+    """(least ms, what bounds it) of kernel 9 (FP32) or kernel 11 (``mma``:
+    the contraction at the 3xTF32 rate, the rest at the FP32 rate): the
+    tables, params and output moved once against the operations."""
+    n_bins, n_coef, n_ch = stats.coeffs.shape
+    n_bytes = 4 * (n_bins * n_coef * n_ch + n_bins + 7 * n_walkers)
+    pairs = n_walkers * n_bins
+    contraction = 2.0 * n_coef * n_ch * pairs
+    if not mma:
+        return bound_ms(n_bytes, contraction + BIN_COST[0] * pairs, BIN_COST[1] * pairs)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (contraction / TF32X3_FLOPS_PER_S
+             + max(BIN_COST[0] * pairs / FP32_FLOPS_PER_S,
+                   BIN_COST[1] * pairs / SFU_OPS_PER_S)) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def near_truth_params(n_walkers, seed, device):
+    """Walkers drawn as path H's initial walkers are (``mock_params``), in
+    internal units (km/s, arcmin), from a generator of their own."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    p = np.column_stack([
+        rng.normal(0, 0.5, n_walkers), rng.uniform(10.8, 13.2, n_walkers),
+        rng.uniform(24, 36, n_walkers) / 60.0, rng.normal(0, 2, n_walkers),
+        rng.normal(0, 2, n_walkers), rng.uniform(48, 72, n_walkers) / 60.0])
+    return torch.as_tensor(p, dtype=torch.float32, device=device)
+
+
+def validate_setup(device, n_stars=4000, n_walkers=2048):
+    """bench.py --validate's ModelFit set-up, where the matrix-unit gate was
+    set: 4000 stars within ~2 arcmin, errors of 0.5-1 km/s, an unbounded
+    sigma_max prior (s_max 1e6), its walker distribution; float32 tables."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import ModelSufficientStats
+    from mcmc_dynamics_tpu_torch.utils.coordinates import xy_offset_rad
+
+    rng = np.random.default_rng(0)
+    ra_c, dec_c = 56.345, -26.675
+    ra = ra_c + 0.03 * rng.normal(size=n_stars)
+    dec = dec_c + 0.03 * rng.normal(size=n_stars)
+    v = 5.0 * rng.normal(size=n_stars)
+    verr = 0.5 + 0.5 * rng.random(n_stars)
+    dx, dy = xy_offset_rad(np.radians(ra), np.radians(dec), math.radians(ra_c),
+                           math.radians(dec_c), xp=np)
+    arcmin = 10800.0 / math.pi
+    stats = ModelSufficientStats.build(dx * arcmin, dy * arcmin, v, verr ** 2,
+                                       s_max=1e6, device=device, dtype=torch.float32)
+    wr = np.random.default_rng(1)
+    params = np.column_stack([
+        wr.normal(0, 1, n_walkers), np.exp(wr.normal(1.8, 0.2, n_walkers)),
+        wr.uniform(20, 60, n_walkers) / 60.0, wr.normal(0, 3, n_walkers),
+        wr.normal(0, 3, n_walkers), wr.uniform(30, 90, n_walkers) / 60.0])
+    return stats, torch.as_tensor(params, dtype=torch.float32, device=device)
+
+
+def table_kernel_row(label, kernel, stats, params, tol, mma):
+    """Kernel 9 or 11 on ``params``: held to the float64 plain version of the
+    same float32 tables at ``tol``; times and bound."""
+    import torch
+
+    stats64 = stats.to(dtype=torch.float64)
+    got = kernel(stats, params)
+    torch.cuda.synchronize()
+    ref = torch.cat([stats64.lnlike(p) for p in torch.split(params.double(), 1024)])
+    err = compare(label, got, ref, **tol)
+    rel = float(torch.max(torch.abs(got.double() - ref) / torch.abs(ref)))
+    ms = cuda_ms(lambda: kernel(stats, params))
+    plain_ms = cuda_ms(lambda: stats.lnlike(params), reps=5)
+    b_ms, b_by = sufficient_bound(stats, params.shape[0], mma)
+    return dict(W=params.shape[0], max_abs_err=err, max_rel_err=rel, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, out=got)
+
+
+def phase_sufficient_kernel(device, fit, ensembles=(16384, 512)):
+    """Phase 22: kernel 9 on path H's float32 tables at 16384 walkers and at
+    the path's half-ensemble, against the float64 plain version (the tier's
+    gate), and the tables against the exact float64 star sum."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import (model_lnlike_reference,
+                                             model_sufficient_lnlike)
+
+    t0 = time.perf_counter()
+    stats = fit.sufficient_stats()
+    build_s = time.perf_counter() - t0
+    n_bins, n_coef, _ = stats.coeffs.shape
+    rows = []
+    for n_walkers in ensembles:
+        params = near_truth_params(n_walkers, seed=n_walkers, device=device)
+        row = table_kernel_row(f"model_sufficient W={n_walkers}", model_sufficient_lnlike,
+                               stats, params, TENSOR_TOL, mma=False)
+        row["params"] = params
+        rows.append(row)
+    # the tables against the exact star sum (float64 direct plain version)
+    dx, dy = fit.fixed_center_offsets()
+    dx, dy = dx * (10800.0 / math.pi), dy * (10800.0 / math.pi)
+    cols = [torch.as_tensor(c, dtype=torch.float64, device=device) for c in
+            (dx, dy, dx * dx + dy * dy, fit.data.data.value("v", "km/s"),
+             fit.data.data.value("verr", "km/s") ** 2, np.ones_like(dx))]
+    probe = rows[0]["params"][:256].double()
+    exact = torch.cat([model_lnlike_reference(p, *cols) for p in torch.split(probe, 32)])
+    tab_err = compare("binned tables vs exact star sum",
+                      stats.to(dtype=torch.float64).lnlike(probe), exact, **TENSOR_TOL)
+    for row in rows:
+        print(f"phase 22 kernel model_sufficient W={row['W']} N={fit.n_data} tables "
+              f"B={n_bins} D={n_coef} (host build {build_s:.2f} s): max_abs_err "
+              f"{row['max_abs_err']:.4g} (max rel {row['max_rel_err']:.3g}) vs float64 "
+              f"plain (rtol {TENSOR_TOL['rtol']}, atol {TENSOR_TOL['atol']}) | tables "
+              f"vs exact star sum {tab_err:.4g} | kernel {row['ms']:.4f} ms | plain "
+              f"f32 {row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+    return stats, rows
+
+
+def phase_sufficient_mma(device, stats, k9_rows):
+    """Phase 23: kernel 11 at phase 22's inputs, against the float64 plain
+    version at the tier's gate and beside kernel 9; and on bench.py
+    --validate's set-up at the matrix-unit gate it was held to there."""
+    from mcmc_dynamics_tpu_torch.ops import (model_sufficient_lnlike,
+                                             model_sufficient_lnlike_mma)
+
+    rows = []
+    for k9 in k9_rows:
+        row = table_kernel_row(f"model_sufficient_mma W={k9['W']}",
+                               model_sufficient_lnlike_mma, stats, k9["params"],
+                               TENSOR_TOL, mma=True)
+        diff = float((row["out"].double() - k9["out"].double()).abs().max())
+        print(f"phase 23 kernel model_sufficient_mma W={row['W']} (phase 22's tables "
+              f"and walkers): max_abs_err {row['max_abs_err']:.4g} (max rel "
+              f"{row['max_rel_err']:.3g}) vs float64 plain (rtol {TENSOR_TOL['rtol']}, "
+              f"atol {TENSOR_TOL['atol']}) | vs kernel 9 {diff:.4g} | kernel "
+              f"{row['ms']:.4f} ms ({row['ms'] / k9['ms']:.3f}x kernel 9) | plain f32 "
+              f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        rows.append(row)
+    v_stats, v_params = validate_setup(device)
+    for label, kernel, mma in (("model_sufficient_mma", model_sufficient_lnlike_mma, True),
+                               ("model_sufficient", model_sufficient_lnlike, False)):
+        row = table_kernel_row(f"{label} validate set-up", kernel, v_stats, v_params,
+                               MXU_TOL, mma=mma)
+        print(f"phase 23 kernel {label} on bench.py --validate's set-up (4000 stars, "
+              f"{row['W']} walkers, B={v_stats.coeffs.shape[0]} "
+              f"D={v_stats.coeffs.shape[1]}): max_abs_err {row['max_abs_err']:.4g} (max "
+              f"rel {row['max_rel_err']:.3g}) vs float64 plain (rtol {MXU_TOL['rtol']}, "
+              f"atol {MXU_TOL['atol']}) | kernel {row['ms']:.4f} ms")
+    return rows
+
+
+def model_gb_v2_inputs(device):
+    """Kernel 13 on kernel 6's inputs (``radial_inputs``) without the per-star
+    background row, which the Gaussian background does not read."""
+    make = radial_inputs(device, "model_mixture")
+
+    def inputs(shape):
+        a32, _, kw64, pairs = make(shape)
+        return a32[:8] + a32[9:], {}, dict(tiny=kw64["tiny"]), pairs
+    return inputs
+
+
+def model_mixture_gb(params, dxm, dym, r2, v, verr2, density, ln_density, mask):
+    """Kernel 6's wrapper with its Gaussian background, in kernel 13's
+    arguments."""
+    from mcmc_dynamics_tpu_torch.ops import model_mixture_lnlike_batched
+
+    return model_mixture_lnlike_batched(params, dxm, dym, r2, v, verr2, density,
+                                        ln_density, v.new_zeros(v.shape), mask,
+                                        parametric_bg=True)
+
+
+def phase_v2(phase, name, v2, plain, v1, inputs, shapes, rows_k, cols_k):
+    """Phases 24 and 25: kernel 12 or 13 against its float64 plain version
+    (``pair_kernel_phase``), then beside the kernel it restructures (5 or 6)
+    on the same inputs: the largest difference relative to max(|lnL|, 1) over
+    the walkers with f_back > 0 (at f_back = 0 the two forms clamp
+    differently), and the two kernels' times, timed in turns."""
+    import torch
+
+    rows = pair_kernel_phase(phase, name, v2, plain, inputs, shapes, DIRECT_TOL,
+                             rows_k=rows_k, cols_k=cols_k)
+    for shape, row in zip(shapes, rows):
+        a32 = inputs(shape)[0]
+        got, ref = v2(*a32).double(), v1(*a32).double()
+        torch.cuda.synchronize()
+        live = a32[0][:, -1] > 0
+        diff = float(((got - ref).abs() / ref.abs().clamp(min=1.0))[live].max())
+        v1_ms, v2_ms = cuda_ms(lambda: v1(*a32)), cuda_ms(lambda: v2(*a32))
+        v2_ms2, v1_ms2 = cuda_ms(lambda: v2(*a32)), cuda_ms(lambda: v1(*a32))
+        ratio = (v2_ms + v2_ms2) / (v1_ms + v1_ms2)
+        print(f"phase {phase} kernel {name} {shape[0]} x {shape[1] + shape[2]} beside "
+              f"the kernel it restructures: max rel diff {diff:.3g} (f_back > 0 "
+              f"walkers) | v2 {v2_ms:.4f}, {v2_ms2:.4f} ms, v1 {v1_ms:.4f}, "
+              f"{v1_ms2:.4f} ms: v2/v1 {ratio:.3f}")
+        row.update(v1_rel_diff=diff, v1_ms=0.5 * (v1_ms + v1_ms2), v2_over_v1=ratio)
+    return rows
+
+
+# path H's medians in the JAX package's float64 run of the same set-up
+# (chip_smoke_reference.py H: 192 bins), printed beside the port's
+H_REFERENCE = dict(v_sys=-0.0038, sigma_max=11.96157, a=30.47835, v_maxx=4.2569,
+                   v_maxy=4.31563, r_peak=59.76897)
+
+
 def profile_path(label, fn, n_steps, kernel_names):
     """Run ``fn`` (``n_steps`` ensemble steps) under torch.profiler and print
     the device time per step (CUDA kernel time summed by name), each named
@@ -1049,10 +1306,12 @@ def main(argv=None) -> int:
     from mcmc_dynamics_tpu_torch.ops import (
         KERNELS, background_logsumexp, background_logsumexp_reference,
         constant_gb_lnlike_batched, constant_gb_lnlike_reference,
+        constant_gb_v2_lnlike_batched, constant_gb_v2_lnlike_reference,
         constant_mixture_lnlike_reference, double_model_gb_lnlike_batched,
         double_model_gb_lnlike_reference, double_model_lnlike_batched,
         double_model_lnlike_reference, model_freecenter_lnlike_batched,
-        model_freecenter_lnlike_reference, model_mixture_lnlike_batched,
+        model_freecenter_lnlike_reference, model_gb_v2_lnlike_batched,
+        model_gb_v2_lnlike_reference, model_mixture_lnlike_batched,
         model_mixture_lnlike_reference)
 
     def drive(label, fn, expect):
@@ -1073,8 +1332,8 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(KERNELS, 0)
     smi = phase_environment()
     direct = phase_direct_kernel(device)
-    mock_fit, truth = mock_tensor_fit(device, n_stars=100_000, seed=5)
-    tensor = phase_tensor_kernel(device, mock_fit)
+    mock_b, truth = mock_fit(device, n_stars=100_000, seed=5)
+    tensor = phase_tensor_kernel(device, mock_b)
 
     recipe = drive("A", lambda: phase_recipe(device), {"model_lnlike"})
     print(f"phase 4 main path A (omega Cen recipe, direct tier): "
@@ -1083,7 +1342,7 @@ def main(argv=None) -> int:
           f"(650-step run) | acceptance {recipe['acceptance']:.3f} | goldens ok "
           f"{json.dumps({k: round(float(v), 4) for k, v in recipe['medians'].items()})}"
           f" | bitwise resume ok | launches {recipe['launches']}")
-    path_b = drive("B", lambda: phase_tensor_path(device, mock_fit, truth),
+    path_b = drive("B", lambda: phase_table_path(device, mock_b, truth, "tensor"),
                    {"model_tensor"})
     print(f"phase 5 main path B (tensor tier): {path_b['stars']} stars, "
           f"{path_b['walkers']} walkers x {path_b['steps']} steps | table "
@@ -1175,20 +1434,42 @@ def main(argv=None) -> int:
     radial["G2"] = radial_path(21, "G2", "G2 (DoubleModelFitGB, kernel 8)",
                                {"double_model_gb"})
 
+    mock_h, truth_h = mock_fit(device, n_stars=100_000, seed=5, bounded=False)
+    h_stats, sufficient = phase_sufficient_kernel(device, mock_h)
+    sufficient_mma = phase_sufficient_mma(device, h_stats, sufficient)
+    del h_stats
+    gb_v2 = phase_v2(24, "constant_gb_v2", constant_gb_v2_lnlike_batched,
+                     constant_gb_v2_lnlike_reference, constant_gb_lnlike_batched,
+                     constant_inputs(device, gb=True), (big, half), rows_k=7, cols_k=7)
+    model_v2 = phase_v2(25, "model_gb_v2", model_gb_v2_lnlike_batched,
+                        model_gb_v2_lnlike_reference, model_mixture_gb,
+                        model_gb_v2_inputs(device), (big, half), rows_k=8, cols_k=9)
+    path_h = drive("H", lambda: phase_table_path(device, mock_h, truth_h, "sufficient"),
+                   {"model_sufficient"})
+    print(f"phase 26 main path H (binned tier, default unbounded a/r_peak priors): "
+          f"{path_h['stars']} stars, {path_h['walkers']} walkers x {path_h['steps']} "
+          f"steps | table build {path_h['setup_s']:.2f} s | "
+          f"{path_h['s_per_step'] * 1e3:.4f} ms/step | {path_h['evals_per_s']:.4g} "
+          f"lnprob evals/s | acceptance {path_h['acceptance']:.3f} | medians "
+          f"{json.dumps({k: round(float(v), 4) for k, v in path_h['medians'].items()})} "
+          f"(truth v_sys {truth_h['v_sys']}, sigma_max {truth_h['sigma_max']}; JAX "
+          f"float64 {H_REFERENCE}) | launches {path_h['launches']}")
+
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
         fit_d, _ = freecenter_fit(device)
         for label, fit, n_walkers, names in (
                 ("A", fit_a, 64, ["model_lnlike_kernel"]),
-                ("B", mock_fit, 1024, ["model_tensor_kernel"]),
+                ("B", mock_b, 1024, ["model_tensor_kernel"]),
                 ("C", fit_c, 64, []), ("D", fit_d, 64, ["model_freecenter_kernel"]),
                 ("E1", path_e1["fit"], 256, ["constant_gb_kernel"]),
                 ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"]),
                 ("F1", radial["F1"]["fit"], 256, ["model_mixture_kernel"]),
                 ("F2", radial["F2"]["fit"], 256, ["model_mixture_kernel"]),
                 ("G1", path_g1["fit"], 64, ["double_model_kernel"]),
-                ("G2", radial["G2"]["fit"], 256, ["double_model_gb_kernel"])):
+                ("G2", radial["G2"]["fit"], 256, ["double_model_gb_kernel"]),
+                ("H", mock_h, 1024, ["model_sufficient_kernel", "finish_kernel"])):
             pos = fit.get_initials(n_walkers)
             fit(n_walkers=n_walkers, n_steps=20, pos=pos, prefix=None)   # warm-up
             profile_path(label, lambda: fit(n_walkers=n_walkers, n_steps=100,
@@ -1202,14 +1483,21 @@ def main(argv=None) -> int:
             ("model_mixture", "model_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:500", model_mixture[0]),
             ("double_model", "double_model.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:605", double[0]),
             ("double_model_gb", "double_model_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:807", double_gb[0]),
-            ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0])]
+            ("model_sufficient", "model_sufficient.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:422", sufficient[0]),
+            ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0]),
+            ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0]),
+            ("constant_gb_v2", "constant_gb_v2.cu", "tools/probe_mixture.py:124", gb_v2[0]),
+            ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0])]
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mcmc_dynamics_tpu_torch/csrc/{source}", "replaces": replaces,
          "launches": launches[name], "max_abs_err": row["max_abs_err"],
          "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"],
-         # no single PyTorch call computes any of these functions
+         # no single PyTorch call computes any of these functions: per-pair
+         # rsqrt/log/logaddexp reductions, a Chebyshev/Tucker chain, per-bin
+         # Chebyshev contractions folded into a quadratic, a log-sum-exp over
+         # a matrix another call would have to build first
          "library_ms": None}
         for name, source, replaces, row in rows]}
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The JAX package's answers on chip_smoke.py's paths D, E1, E2, F1, F2, G1 and G2.
+"""The JAX package's answers on chip_smoke.py's paths D, E1, E2, F1, F2, G1, G2 and H.
 
 Run from the root of the repository, on the CPU (float64):
 
     python3 chip_smoke_reference.py            # every path
-    python3 chip_smoke_reference.py F1 G1      # some of them
+    python3 chip_smoke_reference.py F1 G1 H    # some of them
 
 It sets up each path as ``chip_smoke.py`` does (the same catalog, priors,
 initial walkers, walker and step counts) through the JAX package
@@ -15,8 +15,10 @@ the omega Cen catalog) against the omega Cen goldens, and paths E1
 the truth of the contaminated catalog, paths F1 (ModelFitGB), F2
 (ModelFitConstantBackground with a SingleStars background) and G2
 (DoubleModelFitGB) against the truth of the catalog with rotating members,
-and path G1 (DoubleModelFit on the omega Cen catalog) against the omega Cen
-goldens.  This is where those bounds come from.  The SingleStars background
+path G1 (DoubleModelFit on the omega Cen catalog) against the omega Cen
+goldens, and path H (ModelFit on the 1e5-star mock with unbounded a and
+r_peak priors: the binned tier, 192 bins in float64) against the mock's
+truth.  This is where those bounds come from.  The SingleStars background
 is evaluated by the port's float64 plain version of the KDE on the CPU (the
 same function; the JAX package's own numpy path would hold a 1.3 GB matrix at
 this size).
@@ -172,8 +174,23 @@ def path_g1():
            time.perf_counter() - t0, check)
 
 
+def path_h():
+    """Path H through the JAX package (its auto dispatch takes the binned
+    tier: 1e5 stars, unbounded a and r_peak priors)."""
+    from mcmc_dynamics_tpu.models import ModelFit
+
+    columns, truth = chip_smoke.mock_catalog(n_stars=100_000, seed=5)
+    fit = ModelFit(jax_reader(columns), seed=5, parameters=chip_smoke.mock_params(
+        ModelFit.default_parameters(), truth, bounded=False))
+    assert fit._sufficient_eligible() and not fit._tensor_eligible()
+    t0 = time.perf_counter()
+    run = fit(n_walkers=1024, n_steps=200, prefix=None)
+    report("path H (JAX, float64, CPU)", fit, run, 100, time.perf_counter() - t0,
+           truth_check(("v_sys", "sigma_max"), truth))
+
+
 def main():
-    which = sys.argv[1:] or ["D", "E1", "E2", "F1", "F2", "G1", "G2"]
+    which = sys.argv[1:] or ["D", "E1", "E2", "F1", "F2", "G1", "G2", "H"]
     if "D" in which:
         path_d()
     if {"E1", "E2"} & set(which):
@@ -189,6 +206,8 @@ def main():
         for path in ("F1", "F2", "G2"):
             if path in which:
                 path_radial(path, columns, field_catalog, truth)
+    if "H" in which:
+        path_h()
     return 0
 
 

@@ -8,8 +8,9 @@ kernels written by hand in CUDA C++ (``csrc/``).
 What runs today, sampled by the stretch-move ensemble:
 
 * the global :class:`~.models.ModelFit` (Lynden-Bell rotation + Plummer
-  dispersion) with a fixed centre (the direct walker x star kernel and the
-  tensor-Chebyshev table kernel) or a sampled centre (the free-centre kernel);
+  dispersion) with a fixed centre (the direct walker x star kernel, the
+  tensor-Chebyshev table kernel and the radially-binned table kernel) or a
+  sampled centre (the free-centre kernel);
 * its field-star mixtures :class:`~.models.ModelFitGB` (a sampled Gaussian
   background) and :class:`~.models.ModelFitConstantBackground` (a fixed
   per-star background), both through the ModelFit density-mixture kernel;
@@ -41,7 +42,7 @@ from .mock import make_mock_cluster
 from .parameters import Parameter, Parameters
 from .utils import DataReader, Table
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = ["units", "Parameter", "Parameters", "DataReader", "Table",
            "make_mock_cluster", "resolve_device", "default_dtype",
@@ -50,7 +51,8 @@ __all__ = ["units", "Parameter", "Parameters", "DataReader", "Table",
            "Gaussian", "SingleStars",
            "MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
            "CONSTANT_GB", "MODEL_MIXTURE", "DOUBLE_MODEL", "DOUBLE_MODEL_GB",
-           "BACKGROUND_LSE"]
+           "MODEL_SUFFICIENT", "BACKGROUND_LSE", "MODEL_SUFFICIENT_MMA",
+           "CONSTANT_GB_V2", "MODEL_GB_V2"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -79,6 +81,7 @@ from .background import Gaussian, SingleStars  # noqa: E402
 from .models import (ConstantFit, ConstantFitGB, DoubleModelFit,  # noqa: E402
                      DoubleModelFitGB, ModelFit, ModelFitConstantBackground,
                      ModelFitGB)
-from .ops import (BACKGROUND_LSE, CONSTANT_GB, CONSTANT_MIXTURE,  # noqa: E402
-                  DOUBLE_MODEL, DOUBLE_MODEL_GB, MODEL_FREECENTER, MODEL_LNLIKE,
-                  MODEL_MIXTURE, MODEL_TENSOR)
+from .ops import (BACKGROUND_LSE, CONSTANT_GB, CONSTANT_GB_V2,  # noqa: E402
+                  CONSTANT_MIXTURE, DOUBLE_MODEL, DOUBLE_MODEL_GB, MODEL_FREECENTER,
+                  MODEL_GB_V2, MODEL_LNLIKE, MODEL_MIXTURE, MODEL_SUFFICIENT,
+                  MODEL_SUFFICIENT_MMA, MODEL_TENSOR)

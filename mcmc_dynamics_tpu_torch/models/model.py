@@ -12,14 +12,15 @@ the same 16384-star threshold and the same ``MCMC_TPU_LNPROB`` semantics:
 * ``tensor``: the tensor-Chebyshev table kernel (``ops.model_tensor``), for
   catalogs of 16384 stars and more when ``a`` and ``r_peak`` have finite
   priors, or when forced;
+* ``sufficient``: the radially-binned table kernel (``ops.model_sufficient``),
+  for catalogs of 16384 stars and more when ``a`` or ``r_peak`` has an
+  unbounded prior (the default parameter file), or when forced; approximate
+  (~1e-4 in lnL from the second-order binning), O(bins) per walker;
 * ``freecenter``: the free-centre walker x star kernel, for the eight-parameter
   layout with both centre coordinates sampled;
 * ``generic``: plain torch over ``lnlike_terms``, for every other layout
   (a kinematic parameter held fixed, one centre coordinate sampled, a
   background population).
-
-The radially-binned table tier (``sufficient``) is not ported yet and raises
-``NotImplementedError`` instead of running another tier in its place.
 
 The field-star mixtures ``ModelFitGB`` (a sampled Gaussian background) and
 ``ModelFitConstantBackground`` (a fixed per-star background) take the
@@ -41,6 +42,7 @@ from .. import units as u
 from ..utils.table import Table
 from ..ops.lnlike_kernels import (model_freecenter_lnlike_batched,
                                   model_lnlike_batched, model_mixture_lnlike_batched)
+from ..ops.model_sufficient import ModelSufficientStats, model_sufficient_lnlike
 from ..ops.model_tensor import ModelTensorStats, model_tensor_lnlike
 from ..utils.coordinates import xy_offset_rad
 from .base import (GaussianBackgroundMixin, Runner, density_membership,
@@ -174,12 +176,7 @@ class ModelFit(Runner):
         tier = self.lnprob_tier()
         logger.info("ModelFit lnprob tier: %s", tier)
         if tier == "sufficient":
-            raise NotImplementedError(
-                "The radially-binned table tier (kernel 9), which the reference "
-                "picks for >= 16384 stars when 'a' or 'r_peak' has an unbounded "
-                "prior, is not ported to torch yet (ROADMAP.md queue 1, item "
-                "11). Give 'a' and 'r_peak' finite bounds (tensor tier) or set "
-                "MCMC_TPU_LNPROB=direct.")
+            return self.build_lnprob_sufficient()
         if tier == "tensor":
             return self.build_lnprob_tensor()
         if tier == "direct":
@@ -277,6 +274,34 @@ class ModelFit(Runner):
             ok = torch.isfinite(lp) & stats.in_box(ti)
             return torch.where(ok, lp + model_tensor_lnlike(stats, ti),
                                torch.full_like(lp, -math.inf))
+
+        return batched
+
+    def sufficient_stats(self) -> ModelSufficientStats:
+        """The binned tier's tables for this catalog, built on the host in
+        float64 from the float64 offsets and placed on the model's device in
+        its dtype (which also sets the bin count and the degree)."""
+        dx, dy = self._fixed_offsets_arcmin()
+        stats = ModelSufficientStats.build(
+            dx, dy, self._host_arrays["v"], self._host_arrays["verr"] ** 2,
+            s_max=self._sufficient_s_max(), device=self.device, dtype=self.dtype)
+        logger.info("sufficient tier: %d bins, degree %d", *stats.coeffs.shape[:2])
+        return stats
+
+    def build_lnprob_sufficient(self):
+        """Batched lnprob through the radially-binned Chebyshev moment tables:
+        the catalog is read once, at the build; each walker costs O(bins x
+        degree x 61).  Walkers with sigma_max^2 beyond the table's s_max get
+        -inf (the reference's grid guard)."""
+        stats = self.sufficient_stats()
+        col_scale = self._internal_col_scale()
+        lnprob = self._with_prior(lambda thetas: model_sufficient_lnlike(
+            stats, thetas * col_scale))
+
+        def batched(thetas):
+            in_grid = thetas[:, 1] * thetas[:, 1] <= stats.s_max
+            return torch.where(in_grid, lnprob(thetas),
+                               torch.full_like(thetas[:, 0], -math.inf))
 
         return batched
 

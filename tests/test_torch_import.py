@@ -2,9 +2,11 @@
 
 ``tests/conftest.py`` imports JAX into every test process, so the check runs in
 a fresh interpreter: it builds a fixed-centre and a free-centre ModelFit, a
+ModelFit on 16384 stars in the binned (``sufficient``) tier, a
 ConstantFitGB, a SingleStars background, ModelFitGB,
 ModelFitConstantBackground, DoubleModelFit and DoubleModelFitGB on the CPU,
-and then looks for ``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in
+evaluates the restructured mixtures of ``ops.probe_mixture``, and then looks
+for ``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in
 ``sys.modules``.
 """
 
@@ -39,6 +41,21 @@ assert free.lnprob_tier() == "freecenter", free.lnprob_tier()
 pos = free.get_initials(4)
 pos[:, 6:] = truth["ra_center"], truth["dec_center"]
 assert free.batched_lnprob()(torch.as_tensor(pos)).shape == (4,)
+
+big_data, big_truth = port.make_mock_cluster(n_stars=16384, seed=3)
+big_params = ModelFit.default_parameters()
+big_params["ra_center"].set(value=big_truth["ra_center"], fixed=True)
+big_params["dec_center"].set(value=big_truth["dec_center"], fixed=True)
+big = ModelFit(big_data, parameters=big_params, seed=2, device="cpu")
+assert big.lnprob_tier() == "sufficient", big.lnprob_tier()
+assert torch.isfinite(big.batched_lnprob()(torch.as_tensor(big.get_initials(4)))).all()
+
+from mcmc_dynamics_tpu_torch.ops import probe_mixture
+ones = torch.ones(8, dtype=torch.float64)
+v2_params = torch.tensor([[0.0, 10.0, 0.0, 0.0, 30.0, 40.0, 1.0]], dtype=torch.float64)
+v2 = probe_mixture.constant_gb_v2_lnlike_batched(v2_params, ones, ones, ones, ones,
+                                                 ones, 0 * ones, ones)
+assert torch.isfinite(v2).all()
 
 table = data.data
 table["density"] = np.full(300, 2.0)

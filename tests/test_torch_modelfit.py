@@ -129,9 +129,10 @@ def test_dispatch_picks_the_jax_tier(n_stars, bounded, mode, monkeypatch):
 
 
 def test_unported_tiers_raise(monkeypatch):
-    """The binned tier (kernel 9, >= 16384 stars with unbounded a/r_peak
-    priors) raises instead of running another tier; a sampled centre (kernel
-    3) is ported and builds its tier."""
+    """Every tier the reference picks is ported and builds: a sampled centre
+    (kernel 3), and the binned tier (kernel 9) that a 16384-star catalog with
+    the default unbounded a/r_peak priors takes in auto mode, which evaluates
+    to finite values inside the prior and -inf outside it."""
     from mcmc_dynamics_tpu_torch.models import ModelFit
 
     free = ModelFit(_data(200), parameters=_params(free_centre=True),
@@ -141,8 +142,12 @@ def test_unported_tiers_raise(monkeypatch):
     monkeypatch.setenv("MCMC_TPU_LNPROB", "auto")
     big = ModelFit(_data(16384), parameters=_params(bounded=False), device="cpu")
     assert big.lnprob_tier() == "sufficient"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        big.batched_lnprob()
+    thetas = _thetas(16, seed=4)
+    thetas[:, 2] = np.abs(thetas[:, 2]) + 1.0        # a inside (0, inf)
+    thetas[:, 5] = np.abs(thetas[:, 5]) + 1.0        # r_peak inside (0, inf)
+    thetas[0, 1] = -1.0                              # sigma_max < 0: outside
+    lnp = big.batched_lnprob()(torch.as_tensor(thetas)).numpy()
+    assert lnp[0] == -np.inf and np.isfinite(lnp[1:]).all()
 
 
 def test_no_silent_cpu(monkeypatch):
