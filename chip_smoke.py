@@ -11,11 +11,13 @@ checks each against its plain torch version at the shapes the main paths give
 it, then samples each main path end to end through the entry points a user
 calls, and fails (non-zero exit) if any phase does:
 
-1. environment: torch, CUDA, the card, ``nvidia-smi``, ``nvcc`` and the build;
+1. environment: torch, CUDA, the card, ``nvidia-smi``, ``nvcc`` and the build
+   (ptxas registers and spills);
 2. kernel 1 (fixed-centre walker x star likelihood) against its float64 plain
    version at 16384 walkers x 1e4 stars and at 32 walkers x 6284 stars;
 3. kernel 2 (tensor-Chebyshev tables) against its float64 plain version at
-   16384 walkers on the tables of a 1e5-star mock catalog;
+   16384 walkers and at path B's half-ensemble of 512 on the tables of a
+   1e5-star mock catalog;
 4. main path A, the omega Cen fixed-centre recipe (``example/``): 64 walkers x
    600 steps through kernel 1, goldens, profiles, and a bitwise resume;
 5. main path B, the tensor tier: 1e5-star mock, 1024 walkers x 200 steps
@@ -36,7 +38,9 @@ calls, and fails (non-zero exit) if any phase does:
 14. kernel 6 (ModelFit density mixture) with its Gaussian background and 15.
     with a fixed per-star background, 16. kernel 7 (DoubleModelFit) and 17.
     kernel 8 (DoubleModelFitGB) against their float64 plain versions at 16384
-    walkers x 1e4 stars and at their path's half-ensemble;
+    walkers x 1e4 stars and at their path's half-ensemble; kernels 6 and 8
+    (split over star chunks) also give walkers 0-127 of the 16384 batch
+    bitwise the same value alone, and the same bits in two calls;
 18. main path F1, ModelFitGB on a contaminated catalog with rotating members
     through kernel 6, recovery of the truth;
 19. main path F2, ModelFitConstantBackground with a SingleStars background on
@@ -58,8 +62,9 @@ calls, and fails (non-zero exit) if any phase does:
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
-route, source, launch count on the main paths, error, times and bound; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+route, source, launch count on the main paths, error, times and bound at
+16384 walkers, and its time and bound at its main path's shape
+(``main_path``); the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 1 and prints no result.
 """
 
@@ -101,7 +106,9 @@ FP32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # (FP32 flops, SFU operations) per (walker, star) or (target, catalog) pair,
 # counted from each kernel's source (an FMA is two flops)
-# (an IEEE division as one reciprocal on the unit and its refinement, 8 flops)
+# (an IEEE division, or a reciprocal and its product, as one reciprocal on the
+# unit and its refinement, 8 flops; each log, exp, log1p and rsqrt as one
+# operation on the unit)
 PAIR_COST = {"model_lnlike": (18, 3), "model_freecenter": (36, 3),
              "constant_mixture": (17, 4), "constant_gb": (30, 7),
              "model_mixture": (37, 8), "model_mixture_lnb": (30, 6),
@@ -302,7 +309,10 @@ def box_params(stats, n_walkers, seed, device, dtype):
     return torch.as_tensor(p, dtype=dtype, device=device)
 
 
-def phase_tensor_kernel(device, fit, n_walkers=16384):
+def phase_tensor_kernel(device, fit, ensembles=(16384, 512)):
+    """Kernel 2 at 16384 walkers and at path B's half-ensemble of 512,
+    against its float64 plain version; the tables against the exact star
+    sum."""
     import torch
 
     from mcmc_dynamics_tpu_torch.ops import (model_lnlike_reference,
@@ -312,13 +322,24 @@ def phase_tensor_kernel(device, fit, n_walkers=16384):
     stats = fit.tensor_stats()
     build_s = time.perf_counter() - t0
     stats64 = stats.to(dtype=torch.float64)
-    params = box_params(stats, n_walkers, seed=7, device=device, dtype=fit.dtype)
-    got = model_tensor_lnlike(stats, params)
-    torch.cuda.synchronize()
-    ref = torch.cat([stats64.lnlike(p) for p in torch.split(params.double(), 4096)])
-    err = compare(f"model_tensor W={n_walkers}", got, ref, **TENSOR_TOL)
-    ms = cuda_ms(lambda: model_tensor_lnlike(stats, params))
-    plain_ms = cuda_ms(lambda: stats.lnlike(params), reps=10)
+    rows, probe = [], None
+    for n_walkers in ensembles:
+        params = box_params(stats, n_walkers, seed=7, device=device, dtype=fit.dtype)
+        if probe is None:
+            probe = params[:256].double()
+        got = model_tensor_lnlike(stats, params)
+        torch.cuda.synchronize()
+        ref = torch.cat([stats64.lnlike(p) for p in torch.split(params.double(), 4096)])
+        err = compare(f"model_tensor W={n_walkers}", got, ref, **TENSOR_TOL)
+        ms = cuda_ms(lambda: model_tensor_lnlike(stats, params))
+        plain_ms = cuda_ms(lambda: stats.lnlike(params), reps=10)
+        # the contraction dominates: 2 flops per table element and walker;
+        # the tables, params and output are each moved once
+        k, n_ch = stats.table.shape
+        n_bytes = 4 * (k * n_ch + stats.u_s.numel() + stats.u_a.numel() + 7 * n_walkers)
+        b_ms, b_by = bound_ms(n_bytes, 2.0 * k * n_ch * n_walkers, 0)
+        rows.append(dict(W=n_walkers, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by))
 
     # the tables against the exact star sum (float64 direct plain version)
     dx, dy = fit.fixed_center_offsets()
@@ -326,24 +347,19 @@ def phase_tensor_kernel(device, fit, n_walkers=16384):
     cols = [torch.as_tensor(c, dtype=torch.float64, device=device) for c in
             (dx, dy, dx * dx + dy * dy, fit.data.data.value("v", "km/s"),
              fit.data.data.value("verr", "km/s") ** 2, np.ones_like(dx))]
-    probe = params[:256].double()
     exact = torch.cat([model_lnlike_reference(p, *cols) for p in torch.split(probe, 32)])
     tab_err = compare("tensor tables vs exact star sum", stats64.lnlike(probe),
                       exact, **TENSOR_TOL)
-    # the contraction dominates: 2 flops per table element and walker; the
-    # tables, params and output are each moved once
-    k, n_ch = stats.table.shape
-    n_bytes = 4 * (k * n_ch + stats.u_s.numel() + stats.u_a.numel() + 7 * n_walkers)
-    b_ms, b_by = bound_ms(n_bytes, 2.0 * k * n_ch * n_walkers, 0)
-    print(f"phase 3 kernel model_tensor W={n_walkers} N={fit.n_data} table "
-          f"{tuple(stats.table.shape)} ranks {tuple(stats.u_s.shape)}x"
-          f"{tuple(stats.u_a.shape)} Dr {stats.n_r} (host build {build_s:.2f} s): "
-          f"max_abs_err {err:.4g} vs float64 plain (rtol {TENSOR_TOL['rtol']}, "
-          f"atol {TENSOR_TOL['atol']}) | tables vs exact star sum {tab_err:.4g} "
-          f"| kernel {ms:.4f} ms | plain f32 {plain_ms:.4f} ms | bound "
-          f"{b_ms:.4f} ms ({b_by})")
-    return dict(W=n_walkers, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    for row in rows:
+        print(f"phase 3 kernel model_tensor W={row['W']} N={fit.n_data} table "
+              f"{tuple(stats.table.shape)} ranks {tuple(stats.u_s.shape)}x"
+              f"{tuple(stats.u_a.shape)} Dr {stats.n_r} (host build {build_s:.2f} s): "
+              f"max_abs_err {row['max_abs_err']:.4g} vs float64 plain (rtol "
+              f"{TENSOR_TOL['rtol']}, atol {TENSOR_TOL['atol']}) | tables vs exact "
+              f"star sum {tab_err:.4g} | kernel {row['ms']:.4f} ms | plain f32 "
+              f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+    return rows
 
 
 def read_catalog(cfg):
@@ -516,6 +532,27 @@ def pair_kernel_phase(phase, name, run, plain, inputs, shapes, tol, rows_k, cols
         rows.append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def batch_invariance(phase, name, run, inputs, shape, n_alone=128):
+    """A walker's value does not depend on its batch (what a bitwise resume
+    rests on): walkers 0 .. n_alone - 1 of the ``shape`` batch (the wide
+    walker tile) evaluated alone (2-walker tiles) give the same bits, and so
+    does a second call."""
+    import torch
+
+    a32, kw, _, _ = inputs(shape)
+    whole, again = run(*a32, **kw), run(*a32, **kw)
+    alone = run(a32[0][:n_alone].contiguous(), *a32[1:], **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(whole.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    if not torch.equal(whole[:n_alone].view(torch.int32), alone.view(torch.int32)):
+        raise AssertionError(f"{name}: walkers 0-{n_alone - 1} of a {shape[0]}-walker "
+                             "batch differ from the same walkers alone")
+    print(f"phase {phase} kernel {name}: batch invariance ok (walkers 0-{n_alone - 1} of "
+          f"{shape[0]} x {shape[1] + shape[2]} alone bitwise equal; two calls bitwise "
+          f"equal)")
 
 
 def _on(device, *arrays):
@@ -847,7 +884,9 @@ def radial_inputs(device, kind):
     a = 0.  The mixtures add a density column with one zero density (clamped
     to 1e-300, 0 in float32), walkers 2 and 3 at f_back = 0 and a float32
     normaliser clamp for the float64 plain version; the double models give
-    walker 4 a second component at v_max = 0."""
+    walker 4 a second component at v_max = 0, and kernel 8 gives walker 5's
+    first component r_peak = 1e20 (r_peak^2 overflows float32) and walker 6's
+    two r_peak = 1e13 (the prior allows any r_peak)."""
     import torch
 
     def make(shape):
@@ -885,6 +924,9 @@ def radial_inputs(device, kind):
             params[2:4, -1] = 0.0
         if kind.startswith("double"):
             params[4, 6:8] = 0.0
+        if kind == "double_model_gb":
+            params[5, 5] = 1e20
+            params[6, [5, 8]] = 1e13
         stars = _padded(n_stars, n_pad, dx, dy, dx * dx + dy * dy, v, verr2, *extra)
         return _on(device, params, *stars), kw, kw64, n_walkers * n_stars
     return make
@@ -1288,6 +1330,14 @@ def profile_path(label, fn, n_steps, kernel_names):
           f"{100 * busy / wall_us:.2f} % of it {kernels}")
 
 
+def shape_label(row):
+    """A kernel row's shape: "walkers x stars" (or targets x catalog stars),
+    or "W walkers" for the table kernels."""
+    if "shape" in row:
+        return f"{row['shape'][0]} x {row['shape'][1] + row['shape'][2]}"
+    return f"{row['W']} x {row['N']}" if "N" in row else f"{row['W']} walkers"
+
+
 # ----------------------------------------------------------------------------- main
 def main(argv=None) -> int:
     import torch
@@ -1401,10 +1451,14 @@ def main(argv=None) -> int:
         14, "model_mixture", model_mixture_lnlike_batched, model_mixture_lnlike_reference,
         radial_inputs(device, "model_mixture"), (big, half), DIRECT_TOL, rows_k=8,
         cols_k=9)
-    pair_kernel_phase(
+    batch_invariance(14, "model_mixture", model_mixture_lnlike_batched,
+                     radial_inputs(device, "model_mixture"), big)
+    mixture_lnb = pair_kernel_phase(
         15, "model_mixture_lnb", model_mixture_lnb, model_mixture_lnlike_reference,
         radial_inputs(device, "model_mixture_lnb"), (big, half), DIRECT_TOL, rows_k=9,
         cols_k=7)
+    batch_invariance(15, "model_mixture_lnb", model_mixture_lnb,
+                     radial_inputs(device, "model_mixture_lnb"), big)
     double = pair_kernel_phase(
         16, "double_model", double_model_lnlike_batched, double_model_lnlike_reference,
         radial_inputs(device, "double_model"), (big, (32, 6284, 0)), DIRECT_TOL,
@@ -1413,6 +1467,8 @@ def main(argv=None) -> int:
         17, "double_model_gb", double_model_gb_lnlike_batched,
         double_model_gb_lnlike_reference, radial_inputs(device, "double_model_gb"),
         (big, half), DIRECT_TOL, rows_k=8, cols_k=12)
+    batch_invariance(17, "double_model_gb", double_model_gb_lnlike_batched,
+                     radial_inputs(device, "double_model_gb"), big)
 
     f_columns, f_field, f_truth = contaminated_catalog(**F_CATALOG)
 
@@ -1465,29 +1521,35 @@ def main(argv=None) -> int:
                 ("C", fit_c, 64, []), ("D", fit_d, 64, ["model_freecenter_kernel"]),
                 ("E1", path_e1["fit"], 256, ["constant_gb_kernel"]),
                 ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"]),
-                ("F1", radial["F1"]["fit"], 256, ["model_mixture_kernel"]),
-                ("F2", radial["F2"]["fit"], 256, ["model_mixture_kernel"]),
+                ("F1", radial["F1"]["fit"], 256,
+                 ["model_mixture_kernel", "sum_chunks_kernel<6>"]),
+                ("F2", radial["F2"]["fit"], 256,
+                 ["model_mixture_kernel", "sum_chunks_kernel<6>"]),
                 ("G1", path_g1["fit"], 64, ["double_model_kernel"]),
-                ("G2", radial["G2"]["fit"], 256, ["double_model_gb_kernel"]),
+                ("G2", radial["G2"]["fit"], 256,
+                 ["double_model_gb_kernel", "sum_chunks_kernel<8>"]),
                 ("H", mock_h, 1024, ["model_sufficient_kernel", "finish_kernel"])):
             pos = fit.get_initials(n_walkers)
             fit(n_walkers=n_walkers, n_steps=20, pos=pos, prefix=None)   # warm-up
             profile_path(label, lambda: fit(n_walkers=n_walkers, n_steps=100,
                                             pos=pos, prefix=None), 100, names)
 
-    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0]),
-            ("model_tensor", "model_tensor.cu", "mcmc_dynamics_tpu/ops/model_tensor.py:487", tensor),
-            ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0]),
-            ("constant_mixture", "constant_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:148", mixture[0]),
-            ("constant_gb", "constant_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:699", gb[0]),
-            ("model_mixture", "model_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:500", model_mixture[0]),
-            ("double_model", "double_model.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:605", double[0]),
-            ("double_model_gb", "double_model_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:807", double_gb[0]),
-            ("model_sufficient", "model_sufficient.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:422", sufficient[0]),
-            ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0]),
-            ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0]),
-            ("constant_gb_v2", "constant_gb_v2.cu", "tools/probe_mixture.py:124", gb_v2[0]),
-            ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0])]
+    # (name, source, TPU kernel, row at the large shape (16384 walkers; the
+    # KDE 20480 targets), rows at the main paths' shapes: (path, row), path
+    # None for a kernel no model dispatches)
+    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0], [("A", direct[1])]),
+            ("model_tensor", "model_tensor.cu", "mcmc_dynamics_tpu/ops/model_tensor.py:487", tensor[0], [("B", tensor[1])]),
+            ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0], [("D", freecenter[1])]),
+            ("constant_mixture", "constant_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:148", mixture[0], [("E2", mixture[1])]),
+            ("constant_gb", "constant_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:699", gb[0], [("E1", gb[1])]),
+            ("model_mixture", "model_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:500", model_mixture[0], [("F1", model_mixture[1]), ("F2", mixture_lnb[1])]),
+            ("double_model", "double_model.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:605", double[0], [("G1", double[1])]),
+            ("double_model_gb", "double_model_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:807", double_gb[0], [("G2", double_gb[1])]),
+            ("model_sufficient", "model_sufficient.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:422", sufficient[0], [("H", sufficient[1])]),
+            ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0], [("E2", lse[0]), ("F2", lse[0])]),
+            ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0], [(None, sufficient_mma[1])]),
+            ("constant_gb_v2", "constant_gb_v2.cu", "tools/probe_mixture.py:124", gb_v2[0], [(None, gb_v2[1])]),
+            ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0], [(None, model_v2[1])])]
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mcmc_dynamics_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -1498,8 +1560,13 @@ def main(argv=None) -> int:
          # rsqrt/log/logaddexp reductions, a Chebyshev/Tucker chain, per-bin
          # Chebyshev contractions folded into a quadratic, a log-sum-exp over
          # a matrix another call would have to build first
-         "library_ms": None}
-        for name, source, replaces, row in rows]}
+         "library_ms": None,
+         # the same kernel at its main path's shape (``ms`` and ``bound_ms``
+         # above are at the large shape)
+         "main_path": [{"path": path, "shape": shape_label(prow), "ms": prow["ms"],
+                        "bound_ms": prow["bound_ms"], "bound_by": prow["bound_by"]}
+                       for path, prow in path_rows]}
+        for name, source, replaces, row, path_rows in rows]}
     loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                     or m == "mcmc_dynamics_tpu" or m.startswith("mcmc_dynamics_tpu."))
     if loaded:

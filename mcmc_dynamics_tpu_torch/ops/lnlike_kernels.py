@@ -48,7 +48,7 @@ __all__ = ["model_lnlike_batched", "model_lnlike_reference", "MODEL_LNLIKE",
            "double_model_lnlike_batched", "double_model_lnlike_reference",
            "DOUBLE_MODEL",
            "double_model_gb_lnlike_batched", "double_model_gb_lnlike_reference",
-           "DOUBLE_MODEL_GB"]
+           "DOUBLE_MODEL_GB", "STAR_CHUNK", "star_chunks"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -62,9 +62,23 @@ CONSTANT_MIXTURE = Kernel("constant_mixture_launch",
                           [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
 CONSTANT_GB = Kernel("constant_gb_launch",
                      [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
-MODEL_MIXTURE = Kernel("model_mixture_launch", [_P, _I] + [_P] * 9 + [_I, _I, _P])
+# kernels 6 and 8 split the stars over blocks: (..., n_stars, [parametric,]
+# star_chunk, n_chunks, partial, out), ``partial`` the (n_chunks, W) scratch
+MODEL_MIXTURE = Kernel("model_mixture_launch",
+                       [_P, _I] + [_P] * 9 + [_I, _I, _I, _I, _P, _P])
 DOUBLE_MODEL = Kernel("double_model_launch", [_P, _I] + [_P] * 6 + [_I, _P])
-DOUBLE_MODEL_GB = Kernel("double_model_gb_launch", [_P, _I] + [_P] * 8 + [_I, _P])
+DOUBLE_MODEL_GB = Kernel("double_model_gb_launch",
+                         [_P, _I] + [_P] * 8 + [_I, _I, _I, _P, _P])
+
+# stars per chunk of the split kernels 6 and 8, which take it as an argument
+STAR_CHUNK = 2048
+
+
+def star_chunks(n_stars: int) -> int:
+    """Chunks of the split kernels 6 and 8: a function of the star count
+    alone (never of the walker count), so a walker's sum is added in the same
+    order in every batch."""
+    return max(1, -(-n_stars // STAR_CHUNK))
 
 
 # ----------------------------------------------------------------- plain versions
@@ -283,10 +297,13 @@ def _check(name, x, n, device, dtype):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(kernel, name, params, n_cols, stars, extra=()):
+def _launch(kernel, name, params, n_cols, stars, extra=(), split=False):
     """Check a CUDA launch's arguments and run ``kernel``: params (W,
     n_cols) float32, star columns (N,) float32 on the same card, contiguous;
-    ``extra`` are scalar arguments passed after the star count."""
+    ``extra`` are scalar arguments passed after the star count.  ``split``
+    (kernels 6 and 8) passes the chunk size, the chunk count and the
+    (star_chunks(N), W) scratch of the per-chunk sums before ``out``: null
+    with a single chunk, which needs none."""
     if params.device.type != "cuda":
         raise TypeError(f"{name}: unsupported device {params.device}")
     if params.dtype != torch.float32 or params.dim() != 2 or params.shape[1] != n_cols:
@@ -300,8 +317,15 @@ def _launch(kernel, name, params, n_cols, stars, extra=()):
     out = torch.empty(w, dtype=torch.float32, device=params.device)
     if w == 0:
         return out
+    scratch = ()
+    if split:
+        chunks = star_chunks(n)
+        partial = (torch.empty((chunks, w), dtype=torch.float32, device=params.device)
+                   if chunks > 1 else None)
+        scratch = (STAR_CHUNK, chunks, partial.data_ptr() if chunks > 1 else None)
     kernel(params.data_ptr(), w, *(x.data_ptr() for _, x in stars), n, *extra,
-           out.data_ptr(), stream=torch.cuda.current_stream(params.device).cuda_stream)
+           *scratch, out.data_ptr(),
+           stream=torch.cuda.current_stream(params.device).cuda_stream)
     return out
 
 
@@ -369,7 +393,7 @@ def model_mixture_lnlike_batched(params, dxm, dym, r2, v, verr2, density, ln_den
                    9 if parametric_bg else 7,
                    [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v), ("verr2", verr2),
                     ("density", density), ("ln_density", ln_density), ("lnb", lnb),
-                    ("mask", mask)], extra=(int(bool(parametric_bg)),))
+                    ("mask", mask)], extra=(int(bool(parametric_bg)),), split=True)
 
 
 def double_model_lnlike_batched(params, dxm, dym, r2, v, verr2, mask):
@@ -392,4 +416,4 @@ def double_model_gb_lnlike_batched(params, dxm, dym, r2, v, verr2, density,
     return _launch(DOUBLE_MODEL_GB, "double_model_gb_lnlike_batched", params, 12,
                    [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v),
                     ("verr2", verr2), ("density", density),
-                    ("ln_density", ln_density), ("mask", mask)])
+                    ("ln_density", ln_density), ("mask", mask)], split=True)

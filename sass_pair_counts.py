@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Per-pair instructions of the star loops of kernels 6 and 8, read from SASS.
+
+Run from the root of the repository, on a machine with the CUDA toolkit:
+
+    python3 sass_pair_counts.py
+
+It builds the port's kernels (``mcmc_dynamics_tpu_torch.ops._build``), runs
+``cuobjdump -sass`` on the library and, for each instantiation of
+``model_mixture_kernel`` and ``double_model_gb_kernel``, finds the star loop:
+the smallest loop (a backward branch) that issues MUFU operations.  Its
+MUFU.EX2 count is its pair count (one ``expf`` a pair), and it prints, per
+pair, the FP32 flops (FFMA x 2 + FMUL + FADD) and the MUFU operations by
+function.  This is what the compiled code issues, not what the function needs:
+``chip_smoke.PAIR_COST`` counts the latter, for the bounds.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import re
+import subprocess
+from collections import Counter
+
+KERNELS = ("model_mixture_kernel", "double_model_gb_kernel")
+
+
+def star_loop_counts(sass: str) -> list[str]:
+    """One line per kernel instantiation found in the text of ``cuobjdump
+    -sass``."""
+    lines = []
+    for block in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0]
+        kernel = next((k for k in KERNELS if k in name), None)
+        if kernel is None:
+            continue
+        ins = []
+        for addr, body in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block):
+            body = re.sub(r"^@!?U?P\w+\s+", "", body.strip())
+            op = body.split()[0] if body else ""
+            # FFMA.SAT, FFMA.RM, ... are FFMAs; MUFU keeps its function
+            ins.append((int(addr, 16), op if op.startswith("MUFU") else op.split(".")[0],
+                        body))
+        loops = []
+        for addr, op, body in ins:
+            target = re.search(r"0x([0-9a-f]+)", body) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                start = int(target.group(1), 16)
+                ops = Counter(o for a, o, _ in ins if start <= a <= addr)
+                if any(o.startswith("MUFU") for o in ops):
+                    loops.append((addr - start, ops))
+        if not loops:
+            continue
+        ops = min(loops, key=lambda x: x[0])[1]
+        pairs = ops["MUFU.EX2"]
+        if not pairs:
+            continue
+        mufu = {o[5:]: n / pairs for o, n in ops.items() if o.startswith("MUFU")}
+        fp32 = {o: ops[o] / pairs for o in ("FFMA", "FMUL", "FADD")}
+        flops = 2 * fp32["FFMA"] + fp32["FMUL"] + fp32["FADD"]
+        template = re.search(r"ILi(\d+)E(Lb(\d)E)?", name)
+        tag = f"{kernel}<{template.group(1)}" + (
+            f", {'true' if template.group(3) == '1' else 'false'}>"
+            if template.group(2) else ">")
+        lines.append(f"{tag}: star loop of {pairs} pairs, per pair {flops:g} FP32 flops "
+                     f"(FFMA {fp32['FFMA']:g}, FMUL {fp32['FMUL']:g}, FADD "
+                     f"{fp32['FADD']:g}) and {sum(mufu.values()):g} MUFU {mufu}")
+    return lines
+
+
+def main() -> int:
+    from mcmc_dynamics_tpu_torch.ops._build import build_library, find_nvcc
+
+    info = build_library()
+    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(info.path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    lines = star_loop_counts(sass)
+    for line in lines:
+        print(line)
+    return 0 if lines else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
