@@ -5,6 +5,7 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py              # every phase (what the check runs)
     python3 chip_smoke.py --profile    # also trace each main path with torch.profiler
+    python3 chip_smoke.py --chunk-sweep    # also time kernel 7 at several star chunks
 
 It builds the port's CUDA kernels from ``mcmc_dynamics_tpu_torch/csrc``,
 checks each against its plain torch version at the shapes the main paths give
@@ -23,7 +24,8 @@ calls, and fails (non-zero exit) if any phase does:
 5. main path B, the tensor tier: 1e5-star mock, 1024 walkers x 200 steps
    through kernel 2, recovery of the truth;
 6. kernel 3 (free-centre walker x star likelihood), 7. kernel 4 (ConstantFit
-   + fixed background) and 8. kernel 5 (ConstantFitGB density mixture) against
+   + fixed background) and 8. kernel 5 (ConstantFitGB density mixture, split
+   over star chunks; also its batch invariance, as in phase 14) against
    their float64 plain versions at 16384 walkers x 1e4 stars and at their
    path's half-ensemble; 9. kernel 10 (SingleStars KDE) at 20480 targets x
    8192 catalog stars and at a ragged catalog;
@@ -38,7 +40,7 @@ calls, and fails (non-zero exit) if any phase does:
 14. kernel 6 (ModelFit density mixture) with its Gaussian background and 15.
     with a fixed per-star background, 16. kernel 7 (DoubleModelFit) and 17.
     kernel 8 (DoubleModelFitGB) against their float64 plain versions at 16384
-    walkers x 1e4 stars and at their path's half-ensemble; kernels 6 and 8
+    walkers x 1e4 stars and at their path's half-ensemble; kernels 6, 7 and 8
     (split over star chunks) also give walkers 0-127 of the 16384 batch
     bitwise the same value alone, and the same bits in two calls;
 18. main path F1, ModelFitGB on a contaminated catalog with rotating members
@@ -59,6 +61,13 @@ calls, and fails (non-zero exit) if any phase does:
 26. main path H, the binned tier: path B's 1e5-star mock with the default
     unbounded a and r_peak priors, 1024 walkers x 200 steps through kernel 9,
     recovery of the truth.
+
+The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
+1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
+overflows the TPU kernels' forms; the port's kernels stay within the float64
+plain version's tolerance there.  ``--chunk-sweep`` also times kernel 7 at
+several star chunks (the kernel's chunk is an attribute of its launcher, so
+no rebuild is needed).
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
@@ -108,16 +117,22 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # counted from each kernel's source (an FMA is two flops)
 # (an IEEE division, or a reciprocal and its product, as one reciprocal on the
 # unit and its refinement, 8 flops; each log, exp, log1p and rsqrt as one
-# operation on the unit)
+# operation on the unit).  The double models take u = x / r_peak per
+# component, so that no r_peak^2 is formed (finite in float32 at any r_peak);
+# kernels 1, 3, 6 and 13 scale q per walker, which adds nothing to a pair
 PAIR_COST = {"model_lnlike": (18, 3), "model_freecenter": (36, 3),
              "constant_mixture": (17, 4), "constant_gb": (30, 7),
              "model_mixture": (37, 8), "model_mixture_lnb": (30, 6),
-             "double_model": (42, 5), "double_model_gb": (60, 10),
+             "double_model": (47, 5), "double_model_gb": (62, 10),
              "background_lse": (10, 1),
              # kernels 12 and 13: three logs/exps a pair, a quarter log for
              # the product of four nb and a half for the two products of
              # D + f, plus the reciprocals (two; three and an rsqrt for 13)
              "constant_gb_v2": (47, 5.75), "model_gb_v2": (60, 7.75)}
+# r_peak of the walkers that each walker x star phase adds: float32 overflows
+# the TPU kernels' q^2 from ~1.8e19 and their double models' 2 r_peak v_max
+# near 1e37
+LARGE_R_PEAK = (1e19, 1e20, 1e37)
 
 
 def bound_ms(n_bytes, flops, sfu):
@@ -192,7 +207,8 @@ def phase_environment():
 
 def direct_inputs(n_walkers, n_stars, n_pad, seed, device):
     """Random params and a star table with a masked zero padding tail; walker
-    0 has sigma_max = 0 and walker 1 has a = 0 (prior-legal boundaries)."""
+    0 has sigma_max = 0 and walker 1 has a = 0 (prior-legal boundaries), and
+    walkers 2-4 r_peak 1e19, 1e20 and 1e37 (``LARGE_R_PEAK``)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -202,6 +218,7 @@ def direct_inputs(n_walkers, n_stars, n_pad, seed, device):
         rng.uniform(-10, 10, n_walkers), rng.uniform(0.5, 10, n_walkers)])
     params[0, 1] = 0.0
     params[1, 2] = 0.0
+    params[2:5, 5] = LARGE_R_PEAK
     n = n_stars + n_pad
     dxm, dym = np.zeros(n), np.zeros(n)
     dxm[:n_stars], dym[:n_stars] = rng.normal(0, 3, (2, n_stars))
@@ -575,7 +592,8 @@ def _padded(n, n_pad, *cols):
 def freecenter_inputs(device):
     """Kernel 3 at omega Cen's position: stars within ~6 arcmin, walkers
     within ~1 arcmin of the reference centre and one 5 degrees off; walker 0
-    has sigma_max = 0 and walker 1 a = 0."""
+    has sigma_max = 0, walker 1 a = 0 and walkers 2-4 r_peak 1e19, 1e20 and
+    1e37."""
     def make(shape):
         n_walkers, n_stars, n_pad = shape
         rng = np.random.default_rng(n_walkers)
@@ -599,6 +617,7 @@ def freecenter_inputs(device):
             3e-4 * rng.normal(size=n_walkers), 3e-4 * rng.normal(size=n_walkers)])
         params[0, 1] = 0.0
         params[1, 2] = 0.0
+        params[2:5, 5] = LARGE_R_PEAK
         params[-1, 6:] = math.radians(5.0), math.radians(-5.0)
         kw = dict(s0=s0, c0=c0)
         return _on(device, params, *stars), kw, kw, n_walkers * n_stars
@@ -883,10 +902,12 @@ def radial_inputs(device, kind):
     Gaussian velocities and errors; walker 0 has sigma_max = 0 and walker 1
     a = 0.  The mixtures add a density column with one zero density (clamped
     to 1e-300, 0 in float32), walkers 2 and 3 at f_back = 0 and a float32
-    normaliser clamp for the float64 plain version; the double models give
-    walker 4 a second component at v_max = 0, and kernel 8 gives walker 5's
-    first component r_peak = 1e20 (r_peak^2 overflows float32) and walker 6's
-    two r_peak = 1e13 (the prior allows any r_peak)."""
+    normaliser clamp for the float64 plain version.  The prior allows any
+    r_peak: the mixtures give walkers 5-7 r_peak 1e19, 1e20 and 1e37; the
+    double models give walker 4 a second component at v_max = 0, walkers 5,
+    7 and 8 a first component at r_peak 1e20, 1e19 and 1e37, walker 6 both at
+    1e13 (the product of their x^2 + r_peak^2 would overflow float32),
+    walker 9 both at 3e38 and walker 10 both at 1e-3."""
     import torch
 
     def make(shape):
@@ -924,9 +945,12 @@ def radial_inputs(device, kind):
             params[2:4, -1] = 0.0
         if kind.startswith("double"):
             params[4, 6:8] = 0.0
-        if kind == "double_model_gb":
-            params[5, 5] = 1e20
+            params[5, 5], params[7, 5], params[8, 5] = 1e20, 1e19, 1e37
             params[6, [5, 8]] = 1e13
+            params[9, [5, 8]] = 3e38
+            params[10, [5, 8]] = 1e-3
+        else:
+            params[5:8, 5] = LARGE_R_PEAK
         stars = _padded(n_stars, n_pad, dx, dy, dx * dx + dy * dy, v, verr2, *extra)
         return _on(device, params, *stars), kw, kw64, n_walkers * n_stars
     return make
@@ -1295,6 +1319,28 @@ H_REFERENCE = dict(v_sys=-0.0038, sigma_max=11.96157, a=30.47835, v_maxx=4.2569,
                    v_maxy=4.31563, r_peak=59.76897)
 
 
+def chunk_sweep(kernel, name, run, inputs, shapes, chunks):
+    """Kernel ``name``'s time at each star chunk of ``chunks`` and each
+    (walkers, stars, tail) of ``shapes``.  The chunk is the launcher's
+    ``star_chunk`` attribute, set here for the sweep and restored after."""
+    from mcmc_dynamics_tpu_torch.ops import star_chunks
+
+    own = kernel.star_chunk
+    try:
+        for shape in shapes:
+            a32, kw, _, _ = inputs(shape)
+            n = shape[1] + shape[2]
+            readings = []
+            for chunk in chunks:
+                kernel.star_chunk = chunk
+                ms = cuda_ms(lambda: run(*a32, **kw))
+                readings.append(f"{chunk}: {ms:.4f} ms ({star_chunks(n, chunk)} chunks)")
+            print(f"  chunk sweep {name} {shape[0]} x {n} (own chunk {own}): "
+                  + " | ".join(readings))
+    finally:
+        kernel.star_chunk = own
+
+
 def profile_path(label, fn, n_steps, kernel_names):
     """Run ``fn`` (``n_steps`` ensemble steps) under torch.profiler and print
     the device time per step (CUDA kernel time summed by name), each named
@@ -1354,7 +1400,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mcmc_dynamics_tpu_torch.ops import (
-        KERNELS, background_logsumexp, background_logsumexp_reference,
+        DOUBLE_MODEL, KERNELS, background_logsumexp, background_logsumexp_reference,
         constant_gb_lnlike_batched, constant_gb_lnlike_reference,
         constant_gb_v2_lnlike_batched, constant_gb_v2_lnlike_reference,
         constant_mixture_lnlike_reference, double_model_gb_lnlike_batched,
@@ -1416,6 +1462,8 @@ def main(argv=None) -> int:
         8, "constant_gb", constant_gb_lnlike_batched, constant_gb_lnlike_reference,
         constant_inputs(device, gb=True), ((16384, 10_000, 240), (128, 20_480, 0)),
         DIRECT_TOL, rows_k=7, cols_k=7)
+    batch_invariance(8, "constant_gb", constant_gb_lnlike_batched,
+                     constant_inputs(device, gb=True), (16384, 10_000, 240))
     lse = pair_kernel_phase(
         9, "background_lse", background_logsumexp, background_logsumexp_reference,
         background_inputs(device), ((20_480, 8192, 0), (20_480, 3001, 0)),
@@ -1463,6 +1511,12 @@ def main(argv=None) -> int:
         16, "double_model", double_model_lnlike_batched, double_model_lnlike_reference,
         radial_inputs(device, "double_model"), (big, (32, 6284, 0)), DIRECT_TOL,
         rows_k=6, cols_k=9)
+    batch_invariance(16, "double_model", double_model_lnlike_batched,
+                     radial_inputs(device, "double_model"), big)
+    if "--chunk-sweep" in args:
+        chunk_sweep(DOUBLE_MODEL, "double_model", double_model_lnlike_batched,
+                    radial_inputs(device, "double_model"), ((32, 6284, 0), big),
+                    (256, 512, 1024, 2048))
     double_gb = pair_kernel_phase(
         17, "double_model_gb", double_model_gb_lnlike_batched,
         double_model_gb_lnlike_reference, radial_inputs(device, "double_model_gb"),
@@ -1519,13 +1573,15 @@ def main(argv=None) -> int:
                 ("A", fit_a, 64, ["model_lnlike_kernel"]),
                 ("B", mock_b, 1024, ["model_tensor_kernel"]),
                 ("C", fit_c, 64, []), ("D", fit_d, 64, ["model_freecenter_kernel"]),
-                ("E1", path_e1["fit"], 256, ["constant_gb_kernel"]),
+                ("E1", path_e1["fit"], 256,
+                 ["constant_gb_kernel", "sum_chunks_kernel<5>"]),
                 ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"]),
                 ("F1", radial["F1"]["fit"], 256,
                  ["model_mixture_kernel", "sum_chunks_kernel<6>"]),
                 ("F2", radial["F2"]["fit"], 256,
                  ["model_mixture_kernel", "sum_chunks_kernel<6>"]),
-                ("G1", path_g1["fit"], 64, ["double_model_kernel"]),
+                ("G1", path_g1["fit"], 64,
+                 ["double_model_kernel", "sum_chunks_kernel<7>"]),
                 ("G2", radial["G2"]["fit"], 256,
                  ["double_model_gb_kernel", "sum_chunks_kernel<8>"]),
                 ("H", mock_h, 1024, ["model_sufficient_kernel", "finish_kernel"])):

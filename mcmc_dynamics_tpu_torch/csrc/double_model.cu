@@ -4,124 +4,130 @@
 // Replaces the TPU kernel mcmc_dynamics_tpu/ops/lnlike_kernels.py:
 // double_model_lnlike_batched (its pl.pallas_call).  Params row per walker
 // (km/s and arcmin): (v_sys, sigma_max, a, v_maxx, v_maxy, r_peak, v_maxx_c,
-// v_maxy_c, r_peak_c).  Star rows: dxm, dym, r2, v, verr2, mask.  Per
-// component (vx, vy, rp), with the per-walker scalars
+// v_maxy_c, r_peak_c).  Star rows: dxm, dym, r2, v, verr2, mask.  With the
+// member branch of double_model.cuh (two Lynden-Bell components, finite at
+// any r_peak; Plummer n), each live star adds
 //
-//   iv = rsqrt(vx^2 + vy^2 + 1e-30),  c = 2 rp (vx^2 + vy^2 + 1e-30) iv,  rp^2
+//   -1/2 [ d^2 / n + log n + log(2 pi) ],   d = (v_sys - v) + rot_1 + rot_2
 //
-// each star has x = (dy vx - dx vy) iv and rot = c x / (rp^2 + x^2): the
-// reference's Lynden-Bell curve with x_pa / r_peak in the denominator.  The
-// 1e-30 keeps a component with v_max = 0 at exactly 0 rotation (x = 0, c ~ 0)
-// where the reference's float32 evaluation divides 0 by 0.  Then
+// so lnL = -1/2 sum_i m_i [d^2 / n + log n + log 2 pi].  log 2 pi is taken
+// in each live pair's term, not as the masked star count times log 2 pi: the
+// split blocks then sum nothing but the walkers' terms, in the order that
+// keeps a walker's value the same in every batch.
 //
-//   d    = (v_sys - v) + rot_1 + rot_2
-//   n    = verr2 + sigma_max^2 / sqrt(1 + r2/a^2)
-//   lnL  = -1/2 sum_i [ d^2 / n + log n ] - 1/2 (sum_i m_i) log(2 pi)
-//
-// What bounds it on this card: arithmetic.  A pair costs two IEEE divisions
-// (not __fdividef: a reciprocal and its Newton step each), two rsqrt and one
-// log against ~30 other FP32 operations; the 6 x N x 4-byte star table stays
-// in L2.  Layout as the other walker x star kernels (walker_reduce.cuh): each
-// star is read once per block and reused for a register tile of walkers, the
-// log of n is taken per pair (no products of four), masked lanes are
-// selected away and the block sums come in a fixed order.
+// What bounds it on this card: arithmetic.  A pair costs two reciprocals
+// (MUFU.RCP and its refinement), two rsqrt and one log against ~40 other
+// FP32 operations; the 6 x N x 4-byte star table stays in L2.  Design
+// (walker_reduce::split_reduce), as kernel 8 (double_model_gb.cu): the star
+// axis in chunks over blockIdx.y, of the wrapper's size for this kernel
+// (ops/lnlike_kernels.py: DOUBLE_MODEL.star_chunk, smaller than kernel 8's
+// so that G1's 32 walkers x 6284 stars launch 13 x 16 blocks, not 16); a
+// register tile of 2 walkers for a half-ensemble and of 4 for a large one;
+// masked and tail lanes selected away; the warp sums, the warps and the
+// chunks added in a fixed order.
 
+#include "double_model.cuh"
 #include "walker_reduce.cuh"
 
 namespace {
 
 using walker_reduce::kThreads;
-using walker_reduce::kWarps;
 constexpr float kLog2Pi = 1.8378770664093453f;
+
+struct Rows {
+  const float *dxm, *dym, *r2, *v, *verr2, *mask;
+};
+
+// Stars a thread takes per step: 1 at either tile (48 and 80 registers,
+// ptxas -v, no spill).  Two a step gave the 2-walker tile 62 registers and
+// bought nothing at 32 x 6284; at 16384 x 10240 one a step is the faster.
+template <int TW>
+constexpr int kGroup = 1;
+
+template <int TW>
+struct Tile {
+  Rows rows;
+  double_model::Member m[TW];
+
+  struct Star {
+    float dx, dy, rr, v, e2;
+    bool on;
+  };
+
+  __device__ __forceinline__ Tile(const Rows& r, const float* __restrict__ params,
+                                  int w0, int n_walkers)
+      : rows(r) {
+#pragma unroll
+    for (int k = 0; k < TW; ++k)
+      // the ragged last tile repeats the last walker and never writes it
+      m[k].set(params + 9 * min(w0 + k, n_walkers - 1));
+  }
+
+  __device__ __forceinline__ Star load(int i) const {
+    Star s;
+    s.dx = __ldg(rows.dxm + i);
+    s.dy = __ldg(rows.dym + i);
+    s.rr = __ldg(rows.r2 + i);
+    s.v = __ldg(rows.v + i);
+    s.e2 = __ldg(rows.verr2 + i);
+    s.on = __ldg(rows.mask + i) > 0.0f;
+    return s;
+  }
+
+  __device__ __forceinline__ bool live(const Star& s) const { return s.on; }
+
+  __device__ __forceinline__ float term(int k, const Star& s) const {
+    const float d = m[k].residual(s.dx, s.dy, s.v);
+    const float norm = m[k].variance(s.rr, s.e2);
+    const float dr = d * rsqrtf(norm);
+    return -0.5f * (fmaf(dr, dr, logf(norm)) + kLog2Pi);
+  }
+};
 
 template <int TW>
 __global__ void __launch_bounds__(kThreads)
-double_model_kernel(const float* __restrict__ params, int n_walkers,
-                    const float* __restrict__ dxm, const float* __restrict__ dym,
-                    const float* __restrict__ r2, const float* __restrict__ v,
-                    const float* __restrict__ verr2,
-                    const float* __restrict__ mask, int n_stars,
-                    float* __restrict__ out) {
+double_model_kernel(const float* __restrict__ params, int n_walkers, Rows rows,
+                    int n_stars, int star_chunk, float* __restrict__ dst) {
   const int w0 = blockIdx.x * TW;
-  float v_sys[TW], sigma2[TW], inv_a2[TW];
-  float vx1[TW], vy1[TW], iv1[TW], c1[TW], rp1sq[TW];
-  float vx2[TW], vy2[TW], iv2[TW], c2[TW], rp2sq[TW];
-  float sums[TW + 1];  // per walker, then the mask count
-#pragma unroll
-  for (int k = 0; k < TW; ++k) {
-    // the ragged last tile repeats the last walker and never writes it
-    const float* p = params + 9 * min(w0 + k, n_walkers - 1);
-    v_sys[k] = p[0];
-    sigma2[k] = p[1] * p[1];
-    inv_a2[k] = 1.0f / (p[2] * p[2]);
-    vx1[k] = p[3];
-    vy1[k] = p[4];
-    const float m1 = p[3] * p[3] + p[4] * p[4] + 1e-30f;
-    iv1[k] = rsqrtf(m1);
-    c1[k] = 2.0f * p[5] * m1 * iv1[k];
-    rp1sq[k] = p[5] * p[5];
-    vx2[k] = p[6];
-    vy2[k] = p[7];
-    const float m2 = p[6] * p[6] + p[7] * p[7] + 1e-30f;
-    iv2[k] = rsqrtf(m2);
-    c2[k] = 2.0f * p[8] * m2 * iv2[k];
-    rp2sq[k] = p[8] * p[8];
-    sums[k] = 0.0f;
-  }
-  sums[TW] = 0.0f;
-
-  for (int i = threadIdx.x; i < n_stars; i += kThreads) {
-    const float dx = dxm[i], dy = dym[i], rr = r2[i], vi = v[i], e2 = verr2[i];
-    const float m = mask[i];
-    const bool on = m > 0.0f;
-    sums[TW] += m;
-#pragma unroll
-    for (int k = 0; k < TW; ++k) {
-      const float x1 = (dy * vx1[k] - dx * vy1[k]) * iv1[k];
-      const float rot1 = c1[k] * x1 / fmaf(x1, x1, rp1sq[k]);
-      const float x2 = (dy * vx2[k] - dx * vy2[k]) * iv2[k];
-      const float rot2 = c2[k] * x2 / fmaf(x2, x2, rp2sq[k]);
-      const float d = (v_sys[k] - vi) + rot1 + rot2;
-      const float norm = e2 + sigma2[k] * rsqrtf(fmaf(rr, inv_a2[k], 1.0f));
-      const float dr = d * rsqrtf(norm);
-      const float term = fmaf(dr, dr, logf(norm));
-      sums[k] += on ? term : 0.0f;
-    }
-  }
-
-  __shared__ float red[TW + 1][kWarps];
-  walker_reduce::block_reduce<TW + 1>(sums, red);
-  if (threadIdx.x < TW && w0 + threadIdx.x < n_walkers)
-    out[w0 + threadIdx.x] = -0.5f * (walker_reduce::block_total(red, threadIdx.x)
-                                     + walker_reduce::block_total(red, TW) * kLog2Pi);
+  const Tile<TW> tile(rows, params, w0, n_walkers);
+  walker_reduce::split_reduce<TW, kGroup<TW>>(tile, w0, n_walkers, n_stars, star_chunk,
+                                              dst);
 }
 
 template <int TW>
-cudaError_t launch(const float* params, int n_walkers, const float* dxm,
-                   const float* dym, const float* r2, const float* v,
-                   const float* verr2, const float* mask, int n_stars, float* out,
+cudaError_t launch(const float* params, int n_walkers, const Rows& rows, int n_stars,
+                   int star_chunk, int n_chunks, float* partial, float* out,
                    cudaStream_t stream) {
-  const int grid = (n_walkers + TW - 1) / TW;
-  double_model_kernel<TW><<<grid, kThreads, 0, stream>>>(
-      params, n_walkers, dxm, dym, r2, v, verr2, mask, n_stars, out);
-  return cudaGetLastError();
+  return walker_reduce::launch_split<7, TW>(
+      n_walkers, n_stars, star_chunk, n_chunks, partial, out, stream,
+      [&](dim3 grid, float* dst) {
+        double_model_kernel<TW><<<grid, kThreads, 0, stream>>>(
+            params, n_walkers, rows, n_stars, star_chunk, dst);
+      });
 }
 
 }  // namespace
 
 // C interface for ctypes.  Every pointer is a float32 device pointer
-// (params row-major (n_walkers, 9), stars contiguous (n_stars,)); ``stream``
-// is a cudaStream_t.  Returns the cudaError_t of the launch (0 on success).
+// (params row-major (n_walkers, 9), stars contiguous (n_stars,), ``partial``
+// scratch of (n_chunks, n_walkers), which may be null when n_chunks is 1, out
+// (n_walkers,)); the n_chunks chunks of star_chunk stars must cover the
+// stars; ``stream`` is a cudaStream_t.  Returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int double_model_launch(const float* params, int n_walkers,
                                    const float* dxm, const float* dym,
                                    const float* r2, const float* v,
                                    const float* verr2, const float* mask,
-                                   int n_stars, float* out, void* stream) {
+                                   int n_stars, int star_chunk, int n_chunks,
+                                   float* partial, float* out, void* stream) {
   if (n_walkers <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Rows rows{dxm, dym, r2, v, verr2, mask};
   const cudaError_t err =
       walker_reduce::walker_tile(n_walkers) == 8
-          ? launch<8>(params, n_walkers, dxm, dym, r2, v, verr2, mask, n_stars, out, s)
-          : launch<2>(params, n_walkers, dxm, dym, r2, v, verr2, mask, n_stars, out, s);
+          ? launch<4>(params, n_walkers, rows, n_stars, star_chunk, n_chunks, partial,
+                      out, s)
+          : launch<2>(params, n_walkers, rows, n_stars, star_chunk, n_chunks, partial,
+                      out, s);
   return static_cast<int>(err);
 }

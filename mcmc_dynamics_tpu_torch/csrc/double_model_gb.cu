@@ -5,22 +5,16 @@
 // double_model_gb_lnlike_batched (its pl.pallas_call).  Params row per walker:
 // kernel 7's nine columns (csrc/double_model.cu), then (v_back, sigma_back,
 // f_back).  Star rows: dxm, dym, r2, v, verr2, D (density), ln D
-// (float64-accurate log), mask.  The member branch is kernel 7's (two
-// Lynden-Bell components, the 1e-30 guard at v_max = 0, Plummer n):
+// (float64-accurate log), mask.  The member branch is kernel 7's
+// (double_model.cuh: two Lynden-Bell components, each rot = s u / (1 + u^2)
+// with u = x / r_peak, finite at any r_peak and exactly 0 at v_max = 0;
+// Plummer n):
 //
-//   x_c   = (dy vx_c - dx vy_c) / v_max_c,   den_c = x_c^2 + rp_c^2
-//   rot   = c_1 x_1 / den_1 + c_2 x_2 / den_2
-//   lnC   = ln N(v; v_sys + rot, n)
+//   lnC   = ln N(v; v_sys + rot_1 + rot_2, n)
 //   lnB   = ln N(v; v_back, verr2 + sigma_back^2)
 //
 // and each star adds density_mixture::term(lnC, lnB, ...), the density
-// mixture of kernels 5 and 6.  Each rotation term is c_c x_c times the
-// correctly rounded reciprocal of den_c (one MUFU.RCP and its refinement, no
-// IEEE division).  The terms stay apart: the prior lets r_peak grow without
-// bound, and a product den_1 den_2 would overflow float32 once rp_1 rp_2
-// passes ~1.8e19 (inf / inf is NaN), where each term still goes to 0 as it
-// should (den_c = inf at rp_c > ~1.8e19 gives a reciprocal of 0).  A
-// component at v_max = 0 has x_c = 0, so its term is exactly 0.
+// mixture of kernels 5 and 6.
 //
 // What bounds it on this card: the function needs 10 special-function
 // operations a pair (three rsqrt, two logs, exp, log1p, the normaliser's log,
@@ -34,6 +28,7 @@
 // fixed order.
 
 #include "density_mixture.cuh"
+#include "double_model.cuh"
 #include "walker_reduce.cuh"
 
 namespace {
@@ -54,9 +49,7 @@ constexpr int kGroup = TW == 2 ? 4 : 2;
 template <int TW>
 struct Tile {
   Rows rows;
-  float v_sys[TW], sigma2[TW], inv_a2[TW];
-  float vx1[TW], vy1[TW], iv1[TW], c1[TW], rp1sq[TW];
-  float vx2[TW], vy2[TW], iv2[TW], c2[TW], rp2sq[TW];
+  double_model::Member m[TW];
   float v_back[TW], sb2[TW], f_back[TW], ln_f[TW];
 
   struct Star {
@@ -71,21 +64,7 @@ struct Tile {
     for (int k = 0; k < TW; ++k) {
       // the ragged last tile repeats the last walker and never writes it
       const float* p = params + 12 * min(w0 + k, n_walkers - 1);
-      v_sys[k] = p[0];
-      sigma2[k] = p[1] * p[1];
-      inv_a2[k] = 1.0f / (p[2] * p[2]);
-      vx1[k] = p[3];
-      vy1[k] = p[4];
-      const float m1 = p[3] * p[3] + p[4] * p[4] + 1e-30f;
-      iv1[k] = rsqrtf(m1);
-      c1[k] = 2.0f * p[5] * m1 * iv1[k];
-      rp1sq[k] = p[5] * p[5];
-      vx2[k] = p[6];
-      vy2[k] = p[7];
-      const float m2 = p[6] * p[6] + p[7] * p[7] + 1e-30f;
-      iv2[k] = rsqrtf(m2);
-      c2[k] = 2.0f * p[8] * m2 * iv2[k];
-      rp2sq[k] = p[8] * p[8];
+      m[k].set(p);
       v_back[k] = p[9];
       sb2[k] = p[10] * p[10];
       f_back[k] = p[11];
@@ -109,12 +88,8 @@ struct Tile {
   __device__ __forceinline__ bool live(const Star& s) const { return s.on; }
 
   __device__ __forceinline__ float term(int k, const Star& s) const {
-    const float x1 = (s.dy * vx1[k] - s.dx * vy1[k]) * iv1[k];
-    const float x2 = (s.dy * vx2[k] - s.dx * vy2[k]) * iv2[k];
-    const float rot1 = c1[k] * x1 * __frcp_rn(fmaf(x1, x1, rp1sq[k]));
-    const float rot2 = c2[k] * x2 * __frcp_rn(fmaf(x2, x2, rp2sq[k]));
-    const float d = (v_sys[k] - s.v) + rot1 + rot2;
-    const float norm = s.e2 + sigma2[k] * rsqrtf(fmaf(s.rr, inv_a2[k], 1.0f));
+    const float d = m[k].residual(s.dx, s.dy, s.v);
+    const float norm = m[k].variance(s.rr, s.e2);
     const float ln_c = density_mixture::log_gauss(d, rsqrtf(norm));
     const float ln_b = density_mixture::log_gauss(s.v - v_back[k], rsqrtf(s.e2 + sb2[k]));
     return density_mixture::term(ln_c, ln_b, ln_f[k], f_back[k], s.d, s.ln_d);

@@ -12,7 +12,8 @@
 //   A    = dy0 - s0 rdel,  B = b0 + c0 rdel
 //   dy   = A - (2 sin^2(eta/2) A + sin(eta) B)
 //
-// then kernel 1's body (csrc/model_lnlike.cu) on (dx, dy, r2 = dx^2 + dy^2).
+// then kernel 1's body (csrc/model_lnlike.cu, with lynden_bell.cuh's
+// per-walker scale: finite at any r_peak) on (dx, dy, r2 = dx^2 + dy^2).
 //
 // What bounds it on this card: arithmetic.  A pair costs ~30 FP32 operations
 // (kernel 1's ~15 plus ~16 for the projection) and three special-function
@@ -26,6 +27,7 @@
 // over), masked lanes are selected away (never multiplied by 0), and the
 // block sums come in a fixed order (walker_reduce.cuh).
 
+#include "lynden_bell.cuh"
 #include "walker_reduce.cuh"
 
 namespace {
@@ -44,7 +46,7 @@ model_freecenter_kernel(const float* __restrict__ params, int n_walkers,
                         const float* __restrict__ mask, int n_stars, float s0,
                         float c0, float* __restrict__ out) {
   const int w0 = blockIdx.x * TW;
-  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], rp[TW], inv_rp[TW];
+  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], qa[TW], qb[TW];
   float ue[TW], we[TW], un[TW], wn[TW];
   float acc[TW + 1];
 #pragma unroll
@@ -55,10 +57,7 @@ model_freecenter_kernel(const float* __restrict__ params, int n_walkers,
     v_sys[k] = p[0];
     sigma2[k] = p[1] * p[1];
     inv_a2[k] = 1.0f / (a * a);
-    vx2[k] = 2.0f * p[3];
-    vy2[k] = 2.0f * p[4];
-    rp[k] = p[5];
-    inv_rp[k] = 1.0f / p[5];
+    lynden_bell::scale(p[3], p[4], p[5], qa[k], qb[k], vx2[k], vy2[k]);
     const float he = sinf(0.5f * p[6]);
     const float hn = sinf(0.5f * p[7]);
     ue[k] = sinf(p[6]);
@@ -82,7 +81,7 @@ model_freecenter_kernel(const float* __restrict__ params, int n_walkers,
       const float b_w = bi + c0 * rdel;
       const float dy = a_w - (wn[k] * a_w + un[k] * b_w);
       const float rr = dx * dx + dy * dy;
-      const float q = fmaf(rr, inv_rp[k], rp[k]);
+      const float q = fmaf(rr, qa[k], qb[k]);
       const float num = dy * vx2[k] - dx * vy2[k];
       const float d = fmaf(q, v_sys[k] - vi, num);
       const float norm = e2 + sigma2[k] * rsqrtf(fmaf(rr, inv_a2[k], 1.0f));

@@ -17,20 +17,24 @@
 // and lnL += (number of live stars) (ln f - 1/2 log 2 pi) once per walker
 // (density_mixture.cuh).  The star sums of log nb are logs of products of
 // four nb, those of log(D + f) logs of products of two clamped factors:
-// 3.75 logs/exps a pair, plus one rsqrt, against kernel 6's eight.  In
+// 3.75 logs/exps a pair, plus one rsqrt, against kernel 6's eight.  The
+// member term is kernel 6's (q and the numerator scaled per walker,
+// lynden_bell.cuh: finite at any r_peak).  In
 // float32 the products stay finite: nb <= ~1e4 (km/s)^2 for any physical
 // sigma_back and error (a product of four <= 1e16, far below FLT_MAX
 // ~ 3.4e38) and >= verr2 > 0; each D + f is clamped to [1e-15, 1e15].
 //
 // What bounds it on this card: the special-function unit (~3.75
 // transcendentals, one rsqrt and three reciprocals a pair) against ~60 FP32
-// flops (each IEEE division counted as a reciprocal and 8 flops).  Layout as kernel 12 (constant_gb_v2.cu): a register tile of 8
-// (or 2) walkers a block of 256 threads, 4 stars a thread and step at stride
-// 256, masked and tail lanes selected away, a fixed-order block reduction.
+// flops (each IEEE division counted as a reciprocal and 8 flops).  Layout as
+// kernel 12 (constant_gb_v2.cu): a register tile of 8 (or 2) walkers a
+// block of 256 threads, 4 stars a thread and step at stride 256, masked and
+// tail lanes selected away, a fixed-order block reduction.
 
 #include <cfloat>
 
 #include "density_mixture.cuh"
+#include "lynden_bell.cuh"
 #include "walker_reduce.cuh"
 
 namespace {
@@ -50,7 +54,7 @@ model_gb_v2_kernel(const float* __restrict__ params, int n_walkers,
                    const float* __restrict__ mask, int n_stars,
                    float* __restrict__ out) {
   const int w0 = blockIdx.x * TW;
-  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], rp[TW], inv_rp[TW];
+  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], qa[TW], qb[TW];
   float v_back[TW], sb2[TW], f_back[TW], ln_f[TW], acc[TW];
 #pragma unroll
   for (int k = 0; k < TW; ++k) {
@@ -59,10 +63,7 @@ model_gb_v2_kernel(const float* __restrict__ params, int n_walkers,
     v_sys[k] = p[0];
     sigma2[k] = p[1] * p[1];
     inv_a2[k] = 1.0f / (p[2] * p[2]);
-    vx2[k] = 2.0f * p[3];
-    vy2[k] = 2.0f * p[4];
-    rp[k] = p[5];
-    inv_rp[k] = 1.0f / p[5];
+    lynden_bell::scale(p[3], p[4], p[5], qa[k], qb[k], vx2[k], vy2[k]);
     v_back[k] = p[6];
     sb2[k] = p[7] * p[7];
     f_back[k] = fmaxf(p[8], FLT_MIN);
@@ -94,7 +95,7 @@ model_gb_v2_kernel(const float* __restrict__ params, int n_walkers,
       density_mixture::V2Group group;
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
-        const float q = fmaf(rr[j], inv_rp[k], rp[k]);
+        const float q = fmaf(rr[j], qa[k], qb[k]);
         const float num = dy[j] * vx2[k] - dx[j] * vy2[k];
         const float d2 = fmaf(q, v_sys[k] - vi[j], num);
         const float norm = e2[j] + sigma2[k] * rsqrtf(fmaf(rr[j], inv_a2[k], 1.0f));

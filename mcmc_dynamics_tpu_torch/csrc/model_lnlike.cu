@@ -10,6 +10,10 @@
 //   n    = verr2 + sigma_max^2 / sqrt(1 + r2/a^2)
 //   lnL  = -1/2 sum_i [ d^2 / (q^2 n) + log n ] - 1/2 (sum_i m_i) log(2 pi)
 //
+// with q and the numerator scaled per walker (lynden_bell.cuh), so that q^2 n
+// stays finite in float32 at any r_peak (the TPU kernel's overflows from
+// r_peak ~1.8e19 and drops every residual).
+//
 // What bounds it on this card: arithmetic.  A pair costs ~15 FP32 operations
 // and three special-function operations (two rsqrt, one log), while the star
 // table is 6 x N x 4 bytes (240 KB at 1e4 stars) and stays in L2.  The design
@@ -18,7 +22,8 @@
 //
 // Design:
 //   * one block of 256 threads per tile of TW walkers; the tile's per-walker
-//     constants (1/a^2, 1/rp, 2 vx, 2 vy, sigma^2) live in registers;
+//     constants (1/a^2, the scaled q's two, 2 vx c, 2 vy c, sigma^2) live in
+//     registers;
 //   * threads stride over the stars, loading the six SoA rows coalesced;
 //   * per-thread partial sums, then a warp-shuffle and a shared-memory
 //     reduction in a fixed order: one write per walker, no atomics, so the
@@ -30,6 +35,8 @@
 //     a = 0) gives rsqrt(0) = inf, and inf * 0 would turn the walker into NaN.
 
 #include <cuda_runtime.h>
+
+#include "lynden_bell.cuh"
 
 namespace {
 
@@ -46,7 +53,7 @@ model_lnlike_kernel(const float* __restrict__ params, int n_walkers,
                     const float* __restrict__ mask, int n_stars,
                     float* __restrict__ out) {
   const int w0 = blockIdx.x * TW;
-  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], rp[TW], inv_rp[TW];
+  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], qa[TW], qb[TW];
   float acc[TW];
 #pragma unroll
   for (int k = 0; k < TW; ++k) {
@@ -56,10 +63,7 @@ model_lnlike_kernel(const float* __restrict__ params, int n_walkers,
     v_sys[k] = p[0];
     sigma2[k] = p[1] * p[1];
     inv_a2[k] = 1.0f / (a * a);
-    vx2[k] = 2.0f * p[3];
-    vy2[k] = 2.0f * p[4];
-    rp[k] = p[5];
-    inv_rp[k] = 1.0f / p[5];
+    lynden_bell::scale(p[3], p[4], p[5], qa[k], qb[k], vx2[k], vy2[k]);
     acc[k] = 0.0f;
   }
   float cnt = 0.0f;
@@ -71,7 +75,7 @@ model_lnlike_kernel(const float* __restrict__ params, int n_walkers,
     cnt += m;
 #pragma unroll
     for (int k = 0; k < TW; ++k) {
-      const float q = fmaf(rr, inv_rp[k], rp[k]);
+      const float q = fmaf(rr, qa[k], qb[k]);
       const float num = dy * vx2[k] - dx * vy2[k];
       const float d = fmaf(q, v_sys[k] - vi, num);
       const float norm = e2 + sigma2[k] * rsqrtf(fmaf(rr, inv_a2[k], 1.0f));

@@ -17,6 +17,9 @@
 //   otherwise (ModelFitConstantBackground, params (..., r_peak, f_back)):
 //     lnB = lnb, the fixed per-star background log-likelihood.
 //
+// (q and the numerator scaled per walker, lynden_bell.cuh: finite at any
+// r_peak, as kernel 1).
+//
 // What bounds it on this card: the function needs 8 special-function
 // operations a pair with the Gaussian background (three rsqrt, three logs,
 // exp, log1p; 6 with the per-star one) against ~37 FP32 flops, and the
@@ -37,6 +40,7 @@
 // every batch.
 
 #include "density_mixture.cuh"
+#include "lynden_bell.cuh"
 #include "walker_reduce.cuh"
 
 namespace {
@@ -56,7 +60,7 @@ constexpr int kGroup = TW == 2 ? 4 : 1;
 template <int TW, bool kParametric>
 struct Tile {
   Rows rows;
-  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], rp[TW], inv_rp[TW];
+  float v_sys[TW], sigma2[TW], inv_a2[TW], vx2[TW], vy2[TW], qa[TW], qb[TW];
   float v_back[TW], sb2[TW], f_back[TW], ln_f[TW];
 
   struct Star {
@@ -75,10 +79,7 @@ struct Tile {
       v_sys[k] = p[0];
       sigma2[k] = p[1] * p[1];
       inv_a2[k] = 1.0f / (p[2] * p[2]);
-      vx2[k] = 2.0f * p[3];
-      vy2[k] = 2.0f * p[4];
-      rp[k] = p[5];
-      inv_rp[k] = 1.0f / p[5];
+      lynden_bell::scale(p[3], p[4], p[5], qa[k], qb[k], vx2[k], vy2[k]);
       v_back[k] = kParametric ? p[6] : 0.0f;
       sb2[k] = kParametric ? p[7] * p[7] : 0.0f;
       f_back[k] = p[kCols - 1];
@@ -103,7 +104,7 @@ struct Tile {
   __device__ __forceinline__ bool live(const Star& s) const { return s.on; }
 
   __device__ __forceinline__ float term(int k, const Star& s) const {
-    const float q = fmaf(s.rr, inv_rp[k], rp[k]);
+    const float q = fmaf(s.rr, qa[k], qb[k]);
     const float num = s.dy * vx2[k] - s.dx * vy2[k];
     const float d = fmaf(q, v_sys[k] - s.v, num);
     const float norm = s.e2 + sigma2[k] * rsqrtf(fmaf(s.rr, inv_a2[k], 1.0f));

@@ -7,11 +7,12 @@
 // warp order).  No atomics: a walker's result does not depend on the batch it
 // is evaluated in, which is what keeps a checkpoint resume bitwise.
 //
-// The split form (split_reduce, kernels 6 and 8) also cuts the star axis into
-// chunks over blockIdx.y, so that a half-ensemble of 128 walkers still fills
-// the card: each block writes one partial sum per walker into a (chunks, W)
-// buffer, and sum_chunks_kernel adds them in chunk order.  The caller chooses
-// the chunks (ops/lnlike_kernels.py: a function of the star count alone), and
+// The split form (split_reduce, kernels 5 to 8) also cuts the star axis into
+// chunks over blockIdx.y, so that a half-ensemble of 32 or 128 walkers still
+// fills the card: each block writes one partial sum per walker into a
+// (chunks, W) buffer, and sum_chunks_kernel adds them in chunk order.  The
+// caller chooses the chunks (ops/lnlike_kernels.py: each kernel's own chunk
+// size, so their count is a function of the star count alone), and
 // the order of a walker's terms (per thread: its stars of the chunk at stride
 // kThreads in increasing order; then the warp tree and the warps in order;
 // then the chunks in order) depends on neither the walker tile nor the stars a

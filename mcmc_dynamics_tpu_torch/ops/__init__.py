@@ -9,7 +9,7 @@ from .background_kernel import (BACKGROUND_LSE, background_logsumexp,
                                 background_logsumexp_reference)
 from .lnlike_kernels import (CONSTANT_GB, CONSTANT_MIXTURE, DOUBLE_MODEL,
                              DOUBLE_MODEL_GB, MODEL_FREECENTER, MODEL_LNLIKE,
-                             MODEL_MIXTURE, STAR_CHUNK, constant_gb_lnlike_batched,
+                             MODEL_MIXTURE, constant_gb_lnlike_batched,
                              constant_gb_lnlike_reference,
                              constant_mixture_lnlike_batched,
                              constant_mixture_lnlike_reference,
@@ -46,7 +46,7 @@ KERNELS = {"model_lnlike": MODEL_LNLIKE, "model_tensor": MODEL_TENSOR,
 __all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
            "CONSTANT_GB", "MODEL_MIXTURE", "DOUBLE_MODEL", "DOUBLE_MODEL_GB",
            "MODEL_SUFFICIENT", "BACKGROUND_LSE", "MODEL_SUFFICIENT_MMA",
-           "CONSTANT_GB_V2", "MODEL_GB_V2", "KERNELS", "STAR_CHUNK", "star_chunks",
+           "CONSTANT_GB_V2", "MODEL_GB_V2", "KERNELS", "star_chunks",
            "ModelTensorStats",
            "ModelSufficientStats", "ConstantSufficientStats",
            "model_lnlike_batched", "model_lnlike_reference",

@@ -121,12 +121,15 @@ class Kernel:
 
     ``argtypes`` lists the ctypes types of every argument but the trailing
     stream; every pointer is ``c_void_p`` so ctypes never truncates it.
-    ``launches`` counts the calls that launched the kernel.
+    ``launches`` counts the calls that launched the kernel.  A kernel that
+    splits the star axis over blocks has its own ``star_chunk``: the stars a
+    block takes (``None`` for the others).
     """
 
-    def __init__(self, symbol: str, argtypes):
+    def __init__(self, symbol: str, argtypes, star_chunk: int | None = None):
         self.symbol = symbol
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.star_chunk = star_chunk
         self.launches = 0
 
     @functools.cached_property

@@ -48,7 +48,7 @@ __all__ = ["model_lnlike_batched", "model_lnlike_reference", "MODEL_LNLIKE",
            "double_model_lnlike_batched", "double_model_lnlike_reference",
            "DOUBLE_MODEL",
            "double_model_gb_lnlike_batched", "double_model_gb_lnlike_reference",
-           "DOUBLE_MODEL_GB", "STAR_CHUNK", "star_chunks"]
+           "DOUBLE_MODEL_GB", "star_chunks"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -60,37 +60,50 @@ MODEL_FREECENTER = Kernel("model_freecenter_launch",
                           [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P])
 CONSTANT_MIXTURE = Kernel("constant_mixture_launch",
                           [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+# kernels 5 to 8 split the stars over blocks, each in chunks of its own
+# ``star_chunk``: (..., n_stars, [parametric,] star_chunk, n_chunks, partial,
+# out), ``partial`` the (n_chunks, W) scratch.  Kernel 7 takes chunks of 512
+# so that G1's 32 walkers x 6284 stars fill the card (PERF.md: the sweep).
 CONSTANT_GB = Kernel("constant_gb_launch",
-                     [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
-# kernels 6 and 8 split the stars over blocks: (..., n_stars, [parametric,]
-# star_chunk, n_chunks, partial, out), ``partial`` the (n_chunks, W) scratch
+                     [_P, _I] + [_P] * 7 + [_I, _I, _I, _P, _P], star_chunk=2048)
 MODEL_MIXTURE = Kernel("model_mixture_launch",
-                       [_P, _I] + [_P] * 9 + [_I, _I, _I, _I, _P, _P])
-DOUBLE_MODEL = Kernel("double_model_launch", [_P, _I] + [_P] * 6 + [_I, _P])
+                       [_P, _I] + [_P] * 9 + [_I, _I, _I, _I, _P, _P], star_chunk=2048)
+DOUBLE_MODEL = Kernel("double_model_launch",
+                      [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _P], star_chunk=512)
 DOUBLE_MODEL_GB = Kernel("double_model_gb_launch",
-                         [_P, _I] + [_P] * 8 + [_I, _I, _I, _P, _P])
-
-# stars per chunk of the split kernels 6 and 8, which take it as an argument
-STAR_CHUNK = 2048
+                         [_P, _I] + [_P] * 8 + [_I, _I, _I, _P, _P], star_chunk=2048)
 
 
-def star_chunks(n_stars: int) -> int:
-    """Chunks of the split kernels 6 and 8: a function of the star count
-    alone (never of the walker count), so a walker's sum is added in the same
-    order in every batch."""
-    return max(1, -(-n_stars // STAR_CHUNK))
+def star_chunks(n_stars: int, star_chunk: int) -> int:
+    """Chunks of ``star_chunk`` stars of a split kernel: a function of the
+    star count alone (never of the walker count), so a walker's sum is added
+    in the same order in every batch."""
+    return max(1, -(-n_stars // star_chunk))
 
 
 # ----------------------------------------------------------------- plain versions
+def _lynden_bell_scale(vx, vy, r_peak):
+    """``csrc/lynden_bell.cuh``: the per-walker (qa, qb, 2 vx c, 2 vy c) of
+    the member term with q and its numerator multiplied by c (1 / r_peak
+    from |r_peak| >= 1 on, r_peak below), so that ``q c = r2 qa + qb`` stays
+    within [1, 1 + r2] and no r_peak^2 is formed: finite in float32 at any
+    r_peak, with the limit of no rotation."""
+    wide = r_peak.abs() >= 1.0
+    c = torch.where(wide, 1.0 / r_peak, r_peak)
+    one = torch.ones_like(c)
+    return (torch.where(wide, c * c, one), torch.where(wide, one, r_peak * r_peak),
+            2.0 * vx * c, 2.0 * vy * c)
+
+
 def _model_pair(p, dx, dy, r2, v, verr2):
     """Kernel 1's per-pair body: (d^2 / (q^2 n), n) for ``p`` (W, K, 1)
     columns (v_sys, sigma_max, a, v_maxx, v_maxy, r_peak, ...) and offsets
-    (W or 1, N)."""
+    (W or 1, N), with ``q = r_peak + r2 / r_peak``, ``d = q (v_sys - v) +
+    2 (dy vx - dx vy)``, q and d scaled per walker (``_lynden_bell_scale``)."""
     v_sys, sigma2 = p[:, 0], p[:, 1] * p[:, 1]
     inv_a2 = 1.0 / (p[:, 2] * p[:, 2])
-    vx2, vy2 = 2.0 * p[:, 3], 2.0 * p[:, 4]
-    r_peak = p[:, 5]
-    q = r_peak + r2 / r_peak
+    qa, qb, vx2, vy2 = _lynden_bell_scale(p[:, 3], p[:, 4], p[:, 5])
+    q = r2 * qa + qb
     d = q * (v_sys - v) + (dy * vx2 - dx * vy2)
     norm = verr2 + sigma2 * torch.rsqrt(1.0 + r2 * inv_a2)
     t = d * torch.rsqrt(q * q * norm)
@@ -244,17 +257,18 @@ def model_mixture_lnlike_reference(params, dxm, dym, r2, v, verr2, density,
 
 
 def _double_pair(p, dx, dy, r2, v, verr2):
-    """Kernel 7's per-pair body: (d, n) with the reference's two Lynden-Bell
-    components, ``x = (dy vx - dx vy) / v_max`` and ``rot = c x / (rp^2 +
-    x^2)``, ``c = 2 rp v_max`` (``x_pa / r_peak`` in the denominator, as the
-    reference has it).  ``1 / v_max`` is ``rsqrt(vx^2 + vy^2 + 1e-30)``: a
-    component with v_max = 0 gives exactly 0 rotation, also in float32."""
+    """Kernel 7's per-pair body (``csrc/double_model.cuh``): (d, n) with the
+    reference's two Lynden-Bell components, ``x = (dy vx - dx vy) / v_max``,
+    ``u = x / rp`` and ``rot = 2 v_max u / (1 + u^2)`` (``x_pa / r_peak`` in
+    the denominator, as the reference has it).  Nothing of size rp^2 or rp
+    v_max is formed, so a float32 evaluation stays finite at any r_peak.
+    ``1 / v_max`` is ``rsqrt(vx^2 + vy^2 + 1e-30)``: a component with v_max =
+    0 gives exactly 0 rotation, also in float32."""
     def component(vx, vy, rp):
         vmax2 = vx * vx + vy * vy + 1e-30
         inv_vmax = torch.rsqrt(vmax2)
-        c = 2.0 * rp * vmax2 * inv_vmax
-        x = (dy * vx - dx * vy) * inv_vmax
-        return c * x / (rp * rp + x * x)
+        u = (dy * vx - dx * vy) * inv_vmax * (1.0 / rp)
+        return 2.0 * vmax2 * inv_vmax * u / (1.0 + u * u)
 
     rot = component(p[:, 3], p[:, 4], p[:, 5]) + component(p[:, 6], p[:, 7], p[:, 8])
     d = (p[:, 0] - v) + rot
@@ -297,13 +311,14 @@ def _check(name, x, n, device, dtype):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(kernel, name, params, n_cols, stars, extra=(), split=False):
+def _launch(kernel, name, params, n_cols, stars, extra=()):
     """Check a CUDA launch's arguments and run ``kernel``: params (W,
     n_cols) float32, star columns (N,) float32 on the same card, contiguous;
-    ``extra`` are scalar arguments passed after the star count.  ``split``
-    (kernels 6 and 8) passes the chunk size, the chunk count and the
-    (star_chunks(N), W) scratch of the per-chunk sums before ``out``: null
-    with a single chunk, which needs none."""
+    ``extra`` are scalar arguments passed after the star count.  A split
+    kernel (one with a ``star_chunk``: kernels 5 to 8) also gets its chunk
+    size, the chunk count and the (star_chunks(N, chunk), W) scratch of the
+    per-chunk sums before ``out``: null with a single chunk, which needs
+    none."""
     if params.device.type != "cuda":
         raise TypeError(f"{name}: unsupported device {params.device}")
     if params.dtype != torch.float32 or params.dim() != 2 or params.shape[1] != n_cols:
@@ -318,11 +333,12 @@ def _launch(kernel, name, params, n_cols, stars, extra=(), split=False):
     if w == 0:
         return out
     scratch = ()
-    if split:
-        chunks = star_chunks(n)
+    if kernel.star_chunk is not None:
+        chunks = star_chunks(n, kernel.star_chunk)
         partial = (torch.empty((chunks, w), dtype=torch.float32, device=params.device)
                    if chunks > 1 else None)
-        scratch = (STAR_CHUNK, chunks, partial.data_ptr() if chunks > 1 else None)
+        scratch = (kernel.star_chunk, chunks,
+                   partial.data_ptr() if chunks > 1 else None)
     kernel(params.data_ptr(), w, *(x.data_ptr() for _, x in stars), n, *extra,
            *scratch, out.data_ptr(),
            stream=torch.cuda.current_stream(params.device).cuda_stream)
@@ -393,7 +409,7 @@ def model_mixture_lnlike_batched(params, dxm, dym, r2, v, verr2, density, ln_den
                    9 if parametric_bg else 7,
                    [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v), ("verr2", verr2),
                     ("density", density), ("ln_density", ln_density), ("lnb", lnb),
-                    ("mask", mask)], extra=(int(bool(parametric_bg)),), split=True)
+                    ("mask", mask)], extra=(int(bool(parametric_bg)),))
 
 
 def double_model_lnlike_batched(params, dxm, dym, r2, v, verr2, mask):
@@ -416,4 +432,4 @@ def double_model_gb_lnlike_batched(params, dxm, dym, r2, v, verr2, density,
     return _launch(DOUBLE_MODEL_GB, "double_model_gb_lnlike_batched", params, 12,
                    [("dxm", dxm), ("dym", dym), ("r2", r2), ("v", v),
                     ("verr2", verr2), ("density", density),
-                    ("ln_density", ln_density), ("mask", mask)], split=True)
+                    ("ln_density", ln_density), ("mask", mask)])

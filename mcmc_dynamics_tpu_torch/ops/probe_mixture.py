@@ -28,7 +28,7 @@ import math
 import torch
 
 from ._build import Kernel
-from .lnlike_kernels import _launch
+from .lnlike_kernels import _launch, _lynden_bell_scale
 
 __all__ = ["constant_gb_v2_lnlike_batched", "constant_gb_v2_lnlike_reference",
            "model_gb_v2_lnlike_batched", "model_gb_v2_lnlike_reference",
@@ -96,13 +96,15 @@ def model_gb_v2_lnlike_reference(params, dxm, dym, r2, v, verr2, density,
                                  ln_density, mask, tiny=None):
     """Plain torch version of kernel 13: params (W, 9) columns (v_sys,
     sigma_max, a, v_maxx, v_maxy, r_peak, v_back, sigma_back, f_back), star
-    columns (N,) -> (W,) (``tiny`` as in kernel 12)."""
+    columns (N,) -> (W,) (``tiny`` as in kernel 12).  The member term is
+    kernel 6's, q and d scaled per walker (``_lynden_bell_scale``), where
+    the TPU kernel's q^2 overflows float32 from r_peak ~1.8e19."""
     p = params[:, :, None]
     live = mask > 0
     f_back, ln_f = _f_back(p[:, 8], params, tiny)
-    r_peak = p[:, 5]
-    q = r_peak + r2 / r_peak
-    d2 = q * (p[:, 0] - v) + (dym * 2.0 * p[:, 3] - dxm * 2.0 * p[:, 4])
+    qa, qb, vx2, vy2 = _lynden_bell_scale(p[:, 3], p[:, 4], p[:, 5])
+    q = r2 * qa + qb
+    d2 = q * (p[:, 0] - v) + (dym * vx2 - dxm * vy2)
     norm = verr2 + p[:, 1] * p[:, 1] * torch.rsqrt(1.0 + r2 / (p[:, 2] * p[:, 2]))
     nb = verr2 + p[:, 7] * p[:, 7]
     db = v - p[:, 6]

@@ -1,16 +1,18 @@
-"""The split walker x star reduction of kernels 6 and 8 (``walker_reduce.cuh``).
+"""The split walker x star reduction of kernels 5 to 8 (``walker_reduce.cuh``).
 
 A torch emulation of what the CUDA kernels compute, in their order: each
-pair term as the source writes it (kernel 8's rotation terms over
-reciprocals), tail and masked stars selected away, per thread the stars of a
-chunk at stride 256 in increasing order, the warp-shuffle tree, the warps in
-order, then the chunks of ``STAR_CHUNK`` stars in order.  In float64 it is
-held to the unchanged plain versions and to the JAX package's Pallas kernels
-in interpret mode (rtol 1e-10) on inputs with every boundary the kernels must
-survive; in float32 to the float64 plain versions at the direct kernels' gate.
-Also: the chunk count is a function of the star count alone and covers every
-star once, and each C launcher's signature matches its ``Kernel`` argtypes,
-so a mismatch shows before a run on the card.
+pair term as the source writes it (the rotation terms of kernels 7 and 8
+over correctly rounded reciprocals, kernel 6's member term scaled per
+walker), tail and masked
+stars selected away, per thread the stars of a chunk at stride 256 in
+increasing order, the warp-shuffle tree, the warps in order, then the chunks
+of the kernel's own ``star_chunk`` stars in order.  In float64 it is held to
+the plain versions and to the JAX package's Pallas kernels in interpret mode
+(rtol 1e-10) on inputs with every boundary the kernels must survive; in
+float32 to the float64 plain versions at the direct kernels' gate.  Also:
+each kernel's chunk count is a function of the star count alone and covers
+every star once, and each C launcher's signature matches its ``Kernel``
+argtypes, so a mismatch shows before a run on the card.
 """
 
 import ctypes
@@ -25,9 +27,7 @@ import torch
 import jax.numpy as jnp
 
 from mcmc_dynamics_tpu_torch import ops
-from mcmc_dynamics_tpu_torch.ops import (DOUBLE_MODEL_GB, MODEL_MIXTURE, STAR_CHUNK,
-                                         double_model_gb_lnlike_batched,
-                                         double_model_gb_lnlike_reference,
+from mcmc_dynamics_tpu_torch.ops import (model_gb_v2_lnlike_reference,
                                          model_mixture_lnlike_batched,
                                          model_mixture_lnlike_reference, star_chunks)
 
@@ -37,30 +37,41 @@ CSRC = pathlib.Path(ops.__file__).resolve().parents[1] / "csrc"
 LOG_2PI = math.log(2.0 * math.pi)
 THREADS, WARP = 256, 32
 FLOAT32_TINY = float(torch.finfo(torch.float32).tiny)
-KINDS = ["model_mixture", "model_mixture_lnb", "double_model_gb"]
+KINDS = ["constant_gb", "model_mixture", "model_mixture_lnb", "double_model",
+         "double_model_gb"]
+SPLIT = ["constant_gb", "model_mixture", "double_model", "double_model_gb"]
+
+
+def _kernel(kind):
+    return ops.KERNELS[kind.replace("_lnb", "")]
 
 
 # ----------------------------------------------------------------- the emulation
-def _split_sum(terms, live):
-    """Sum (W, N) pair terms over the stars in the kernels' order; tail and
-    masked stars are selected away (they add 0.0)."""
+def _split_sum(terms, live, chunk):
+    """Sum (W, N) pair terms over the stars in the kernels' order, in chunks
+    of ``chunk`` stars; tail and masked stars are selected away (they add
+    0.0)."""
     w, n = terms.shape
-    chunks = star_chunks(n)
-    padded = terms.new_zeros((w, chunks * STAR_CHUNK))
+    chunks = star_chunks(n, chunk)
+    steps = -(-chunk // THREADS)
+    padded = terms.new_zeros((w, chunks * chunk))
     padded[:, :n] = torch.where(live, terms, torch.zeros_like(terms))
-    # star c * STAR_CHUNK + s * THREADS + t is thread t's s-th star of chunk c
-    steps = padded.view(w, chunks, STAR_CHUNK // THREADS, THREADS)
+    # offset s * THREADS + t of chunk c is thread t's s-th star of chunk c;
+    # lanes past the chunk add 0.0
+    lanes = padded.new_zeros((w, chunks, steps * THREADS))
+    lanes[:, :, :chunk] = padded.view(w, chunks, chunk)
+    lanes = lanes.view(w, chunks, steps, THREADS)
     acc = padded.new_zeros((w, chunks, THREADS))
-    for s in range(steps.shape[2]):
-        acc = acc + steps[:, :, s, :]
-    lanes = acc.view(w, chunks, THREADS // WARP, WARP)
+    for s in range(steps):
+        acc = acc + lanes[:, :, s, :]
+    warps = acc.view(w, chunks, THREADS // WARP, WARP)
     off = WARP // 2
     while off:                      # __shfl_down_sync: lane i adds lane i + off
-        lanes = lanes[..., :off] + lanes[..., off:2 * off]
+        warps = warps[..., :off] + warps[..., off:2 * off]
         off //= 2
     block = padded.new_zeros((w, chunks))
     for j in range(THREADS // WARP):    # block_total: the warps in order
-        block = block + lanes[:, :, j, 0]
+        block = block + warps[:, :, j, 0]
     if chunks == 1:                 # the blocks write ``out`` directly
         return block[:, 0]
     out = padded.new_zeros(w)
@@ -82,14 +93,29 @@ def _mixture_term(ln_c, ln_b, ln_f, f_back, density, ln_density, tiny):
     return torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b))) - ln_s
 
 
+def _constant_gb_terms(params, gx, gy, v, verr2, density, ln_density, tiny):
+    """csrc/constant_gb.cu's Tile::term for every (walker, star)."""
+    p = params[:, :, None]
+    d = v - p[:, 0] - gx * p[:, 2] - gy * p[:, 3]
+    ln_c = _log_gauss(d, torch.rsqrt(verr2 + p[:, 1] * p[:, 1]))
+    ln_b = _log_gauss(v - p[:, 4], torch.rsqrt(verr2 + p[:, 5] * p[:, 5]))
+    f_back = p[:, 6]
+    return _mixture_term(ln_c, ln_b, torch.log(f_back), f_back, density, ln_density, tiny)
+
+
 def _model_mixture_terms(params, dxm, dym, r2, v, verr2, density, ln_density, lnb,
                          parametric, tiny):
-    """csrc/model_mixture.cu's Tile::term for every (walker, star)."""
+    """csrc/model_mixture.cu's Tile::term for every (walker, star): q and
+    the rotation's numerator scaled per walker (csrc/lynden_bell.cuh)."""
     p = params[:, :, None]
     sigma2, inv_a2 = p[:, 1] * p[:, 1], 1.0 / (p[:, 2] * p[:, 2])
-    vx2, vy2, rp, inv_rp = 2.0 * p[:, 3], 2.0 * p[:, 4], p[:, 5], 1.0 / p[:, 5]
+    wide = p[:, 5].abs() >= 1.0
+    c = torch.where(wide, 1.0 / p[:, 5], p[:, 5])
+    qa = torch.where(wide, c * c, torch.ones_like(c))
+    qb = torch.where(wide, torch.ones_like(c), p[:, 5] * p[:, 5])
+    vx2, vy2 = 2.0 * p[:, 3] * c, 2.0 * p[:, 4] * c
     f_back = p[:, -1]
-    q = r2 * inv_rp + rp
+    q = r2 * qa + qb
     d = q * (p[:, 0] - v) + (dym * vx2 - dxm * vy2)
     norm = verr2 + sigma2 * torch.rsqrt(r2 * inv_a2 + 1.0)
     t = d * torch.rsqrt(q * q * norm)
@@ -101,22 +127,31 @@ def _model_mixture_terms(params, dxm, dym, r2, v, verr2, density, ln_density, ln
     return _mixture_term(ln_c, ln_b, torch.log(f_back), f_back, density, ln_density, tiny)
 
 
-def _double_model_gb_terms(params, dxm, dym, r2, v, verr2, density, ln_density, tiny):
-    """csrc/double_model_gb.cu's Tile::term: each rotation term times the
-    reciprocal of its denominator."""
-    p = params[:, :, None]
-
-    def component(vx, vy, rp):
+def _double_member(p, dxm, dym, r2, v, verr2):
+    """csrc/double_model.cuh's Member: (d, n), each rotation term s u times
+    the reciprocal of 1 + u^2, u = x / r_peak."""
+    def rot(vx, vy, rp):
         m = vx * vx + vy * vy + 1e-30
         iv = torch.rsqrt(m)
-        x = (dym * vx - dxm * vy) * iv
-        return 2.0 * rp * m * iv, x, x * x + rp * rp
+        u = (dym * vx - dxm * vy) * iv * torch.reciprocal(rp)
+        return 2.0 * m * iv * u * torch.reciprocal(u * u + 1.0)
 
-    c1, x1, den1 = component(p[:, 3], p[:, 4], p[:, 5])
-    c2, x2, den2 = component(p[:, 6], p[:, 7], p[:, 8])
-    d = (p[:, 0] - v) + c1 * x1 * torch.reciprocal(den1) + c2 * x2 * torch.reciprocal(den2)
-    inv_a2 = 1.0 / (p[:, 2] * p[:, 2])
-    norm = verr2 + p[:, 1] * p[:, 1] * torch.rsqrt(r2 * inv_a2 + 1.0)
+    d = (p[:, 0] - v) + rot(p[:, 3], p[:, 4], p[:, 5]) + rot(p[:, 6], p[:, 7], p[:, 8])
+    norm = verr2 + p[:, 1] * p[:, 1] * torch.rsqrt(r2 * (1.0 / (p[:, 2] * p[:, 2])) + 1.0)
+    return d, norm
+
+
+def _double_model_terms(params, dxm, dym, r2, v, verr2):
+    """csrc/double_model.cu's Tile::term: log 2 pi in each pair's term."""
+    d, norm = _double_member(params[:, :, None], dxm, dym, r2, v, verr2)
+    dr = d * torch.rsqrt(norm)
+    return -0.5 * ((dr * dr + torch.log(norm)) + LOG_2PI)
+
+
+def _double_model_gb_terms(params, dxm, dym, r2, v, verr2, density, ln_density, tiny):
+    """csrc/double_model_gb.cu's Tile::term."""
+    p = params[:, :, None]
+    d, norm = _double_member(p, dxm, dym, r2, v, verr2)
     ln_c = _log_gauss(d, torch.rsqrt(norm))
     ln_b = _log_gauss(v - p[:, 9], torch.rsqrt(verr2 + p[:, 10] * p[:, 10]))
     f_back = p[:, 11]
@@ -124,26 +159,37 @@ def _double_model_gb_terms(params, dxm, dym, r2, v, verr2, density, ln_density, 
 
 
 def emulate(kind, params, cols, tiny):
-    """The split kernel ``kind``, in its order and in the dtype of its
-    inputs."""
-    if kind == "double_model_gb":
-        *rows, mask = cols
+    """The split kernel ``kind``, in its order, in its chunks and in the
+    dtype of its inputs."""
+    *rows, mask = cols
+    if kind == "constant_gb":
+        terms = _constant_gb_terms(params, *rows, tiny)
+    elif kind == "double_model":
+        terms = _double_model_terms(params, *rows)
+    elif kind == "double_model_gb":
         terms = _double_model_gb_terms(params, *rows, tiny)
     else:
-        *rows, mask = cols
         terms = _model_mixture_terms(params, *rows, kind == "model_mixture", tiny)
-    return _split_sum(terms, mask > 0)
+    return _split_sum(terms, mask > 0, _kernel(kind).star_chunk)
 
 
 # ----------------------------------------------------------------- inputs
-def _inputs(kind, n_walkers=11, n_stars=2 * STAR_CHUNK + 333, n_masked=61, seed=13):
+# r_peak of boundary walkers: (walker, columns, value); r_peak^2 overflows
+# float32 from ~1.8e19, a product of the double models' x^2 + r_peak^2 from
+# ~1e13, and their 2 r_peak v_max near 1e37
+RPEAK_WALKERS = {"model_mixture": [(5, [5], 1e19), (6, [5], 1e20), (7, [5], 1e37)],
+                 "double_model": [(5, [5], 1e20), (6, [5, 8], 1e13), (7, [5], 1e37),
+                                  (8, [5, 8], 3e38)]}
+
+
+def _inputs(kind, n_walkers=11, n_stars=2 * 2048 + 333, n_masked=61, seed=13):
     """Params and star rows (float64 numpy) of ``kind`` with every boundary:
-    walker 0 at sigma_max = 0, walker 1 at a = 0, walkers 2 and 3 at
-    f_back = 0, and for kernel 8 walker 4's second component at v_max = 0,
-    walker 5's first at r_peak = 1e20 (its r_peak^2 overflows float32) and
-    walker 6's two at r_peak = 1e13 (the product of their x^2 + r_peak^2
-    would); a star of density 1e-300 (0 in float32), and a masked tail of
-    zero padding that leaves the star count no multiple of the chunk."""
+    walker 0 at sigma_max = 0, walker 1 at a = 0 (the kernels with a), the
+    mixtures' walkers 2 and 3 at f_back = 0, the double models' walker 4
+    with its second component at v_max = 0, walkers 5-8 at the r_peak of
+    ``RPEAK_WALKERS`` (the prior allows any r_peak); a star of density 1e-300
+    (0 in float32), and a masked tail of zero padding that leaves the star
+    count no multiple of any chunk."""
     rng = np.random.default_rng(seed)
     n = n_stars + n_masked
     dxm, dym, v, verr2, mask = (np.zeros(n) for _ in range(5))
@@ -155,24 +201,40 @@ def _inputs(kind, n_walkers=11, n_stars=2 * STAR_CHUNK + 333, n_masked=61, seed=
     density[:n_stars] = 10.0 ** rng.uniform(-1, 2, n_stars)
     density[7] = 1e-300
     w = n_walkers
-    params = [rng.uniform(-5, 5, w), rng.uniform(5, 30, w), rng.uniform(0.5, 10, w),
-              rng.uniform(-10, 10, w), rng.uniform(-10, 10, w), rng.uniform(0.5, 10, w)]
-    if kind == "double_model_gb":
-        params += [rng.uniform(-5, 5, w), rng.uniform(-5, 5, w), rng.uniform(0.2, 5, w)]
     background = [rng.normal(40, 5, w), rng.uniform(30, 70, w),
                   10.0 ** rng.uniform(-1, 1, w)]
-    params += background[2:] if kind == "model_mixture_lnb" else background
+    if kind == "constant_gb":
+        phi = np.zeros(n)
+        phi[:n_stars] = rng.uniform(-math.pi, math.pi, n_stars)
+        params = np.column_stack([rng.uniform(-5, 5, w), rng.uniform(5, 30, w),
+                                  rng.uniform(-10, 10, w), rng.uniform(-10, 10, w)]
+                                 + background)
+        params[0, 1] = 0.0
+        params[2:4, -1] = 0.0
+        rows = [np.cos(phi) * mask, np.sin(phi) * mask, v, verr2, density,
+                np.log(density)]
+        return params, rows + [mask]
+    params = [rng.uniform(-5, 5, w), rng.uniform(5, 30, w), rng.uniform(0.5, 10, w),
+              rng.uniform(-10, 10, w), rng.uniform(-10, 10, w), rng.uniform(0.5, 10, w)]
+    double = kind.startswith("double")
+    if double:
+        params += [rng.uniform(-5, 5, w), rng.uniform(-5, 5, w), rng.uniform(0.2, 5, w)]
+    if kind != "double_model":
+        params += background[2:] if kind == "model_mixture_lnb" else background
     params = np.column_stack(params)
     params[0, 1] = 0.0
     params[1, 2] = 0.0
-    params[2:4, -1] = 0.0
-    if kind == "double_model_gb":
+    if kind != "double_model":
+        params[2:4, -1] = 0.0
+    if double:
         params[4, 6:8] = 0.0
-        if n_walkers > 6:
-            params[5, 5] = 1e20
-            params[6, [5, 8]] = 1e13
-    rows = [dxm, dym, dxm * dxm + dym * dym, v, verr2, density, np.log(density)]
-    if kind != "double_model_gb":
+    for walker, cols, value in RPEAK_WALKERS["double_model" if double else "model_mixture"]:
+        if walker < n_walkers:
+            params[walker, cols] = value
+    rows = [dxm, dym, dxm * dxm + dym * dym, v, verr2]
+    if kind != "double_model":
+        rows += [density, np.log(density)]
+    if kind.startswith("model_mixture"):
         lnb = -0.5 * (np.log(2 * math.pi * (verr2 + 2500.0))
                       + (v - 40.0) ** 2 / (verr2 + 2500.0))
         rows.append(lnb)
@@ -184,23 +246,33 @@ def _t(*arrays):
 
 
 def _plain(kind, params, cols, **kw):
-    if kind == "double_model_gb":
-        return double_model_gb_lnlike_reference(params, *cols, **kw)
-    return model_mixture_lnlike_reference(params, *cols,
-                                          parametric_bg=kind == "model_mixture", **kw)
+    if kind == "double_model":
+        return ops.double_model_lnlike_reference(params, *cols)
+    if kind.startswith("model_mixture"):
+        return model_mixture_lnlike_reference(params, *cols,
+                                              parametric_bg=kind == "model_mixture", **kw)
+    return getattr(ops, f"{kind}_lnlike_reference")(params, *cols, **kw)
+
+
+def _batched(kind, params, cols):
+    """The wrapper of kernel ``kind``."""
+    if kind.startswith("model_mixture"):
+        return model_mixture_lnlike_batched(params, *cols,
+                                            parametric_bg=kind == "model_mixture")
+    return getattr(ops, f"{kind}_lnlike_batched")(params, *cols)
 
 
 # ----------------------------------------------------------------- tests
 @pytest.mark.parametrize("tiny", [None, FLOAT32_TINY])
 @pytest.mark.parametrize("kind", KINDS)
 def test_emulation_matches_plain_version(kind, tiny):
-    """The kernels' arithmetic and order against the unchanged float64 plain
-    versions, with the float64 normaliser clamp and with float32's (where
-    the 1e-300 star at f_back = 0 is clamped, as on the card): rtol 1e-10.
-    Walkers 2 and 3 (f_back = 0) keep the member branch alone."""
+    """The kernels' arithmetic and order against the float64 plain versions,
+    with the float64 normaliser clamp and with float32's (where the 1e-300
+    star at f_back = 0 is clamped, as on the card): rtol 1e-10.  Walkers 2
+    and 3 (f_back = 0) keep the member branch alone."""
     p_np, c_np = _inputs(kind)
     params, *cols = _t(p_np, *c_np)
-    kw = {} if tiny is None else dict(tiny=tiny)
+    kw = {} if tiny is None or kind == "double_model" else dict(tiny=tiny)
     got = emulate(kind, params, cols, tiny=torch.finfo(torch.float64).tiny
                   if tiny is None else tiny)
     want = _plain(kind, params, cols, **kw)
@@ -216,7 +288,8 @@ def test_emulation_matches_pallas_interpret(kind):
     from mcmc_dynamics_tpu.ops import lnlike_kernels as jax_ops
 
     p_np, c_np = _inputs(kind, seed=29)
-    kw = {} if kind == "double_model_gb" else dict(parametric_bg=kind == "model_mixture")
+    kw = (dict(parametric_bg=kind == "model_mixture") if kind.startswith("model_mixture")
+          else {})
     base = kind.replace("_lnb", "")
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(getattr(jax_ops, f"{base}_lnlike_batched")(
@@ -232,14 +305,15 @@ def test_emulation_matches_pallas_interpret(kind):
 def test_float32_emulation_matches_plain_version(kind):
     """The kernels' arithmetic and order in float32, as on the card, against
     the float64 plain version of the same float32 inputs at the direct
-    kernels' gate (rtol 2e-4, atol 5e-2).  Kernel 8's walkers at r_peak =
-    1e20 and 1e13 stay finite: each rotation term goes to 0 on its own, where
-    one division over the product of both denominators gives inf / inf."""
+    kernels' gate (rtol 2e-4, atol 5e-2).  The walkers at r_peak 1e13 to
+    3e38 stay finite and within it: no r_peak^2 or 2 r_peak v_max is formed
+    in float32."""
     p_np, c_np = _inputs(kind, seed=17)
     params, *cols = [t.float() for t in _t(p_np, *c_np)]
     got = emulate(kind, params, cols, tiny=FLOAT32_TINY)
     assert got.dtype == torch.float32 and torch.isfinite(got).all(), got
-    want = _plain(kind, params.double(), [c.double() for c in cols], tiny=FLOAT32_TINY)
+    kw = {} if kind == "double_model" else dict(tiny=FLOAT32_TINY)
+    want = _plain(kind, params.double(), [c.double() for c in cols], **kw)
     torch.testing.assert_close(got.double(), want, rtol=2e-4, atol=5e-2)
 
 
@@ -249,8 +323,6 @@ def test_boundary_walkers_differ_from_the_clamped_form():
     log(max(D + f, FLT_MIN)).  Kernel 13's clamps (f_back to FLT_MIN, D + f
     to [1e-15, 1e15]) give that walker a log-likelihood ~550 higher, all of
     it from that star; at f_back > 0 the two forms agree."""
-    from mcmc_dynamics_tpu_torch.ops import model_gb_v2_lnlike_reference
-
     p_np, c_np = _inputs("model_mixture")
     params, *cols = _t(p_np, *c_np)
     rows = cols[:7] + cols[8:]                       # kernel 13 reads no lnb
@@ -270,18 +342,35 @@ def test_boundary_walkers_differ_from_the_clamped_form():
         rtol=1e-10)
 
 
-@pytest.mark.parametrize("n_stars", [0, 1, 255, STAR_CHUNK - 1, STAR_CHUNK,
-                                     STAR_CHUNK + 1, 4429, 10_240, 20_480, 100_003])
+def test_split_kernels_have_their_own_chunk():
+    """Kernels 5 to 8 split the stars, each in chunks of its own size (the
+    others take none); kernels 5, 6 and 8 keep PR 5's 2048, kernel 7 takes
+    smaller ones for G1's 32 walkers."""
+    chunks = {name: kernel.star_chunk for name, kernel in ops.KERNELS.items()
+              if kernel.star_chunk is not None}
+    assert chunks == {"constant_gb": 2048, "model_mixture": 2048, "double_model": 512,
+                      "double_model_gb": 2048}
+
+
+@pytest.mark.parametrize("n_stars", sorted(
+    {0, 1, 255, 4429, 6284, 10_240, 20_480, 100_003}
+    | {n for name in SPLIT for c in [ops.KERNELS[name].star_chunk]
+       for n in (c - 1, c, c + 1)}))
 def test_star_chunks_cover_every_star_once(n_stars):
-    """The chunk count is ceil(N / STAR_CHUNK), and 1 without stars, whatever
-    the walker count, and (chunk, step, thread) -> star covers [0, N) once."""
-    chunks = star_chunks(n_stars)
-    assert chunks == max(1, -(-n_stars // STAR_CHUNK))
-    idx = (np.arange(chunks)[:, None, None] * STAR_CHUNK
-           + np.arange(STAR_CHUNK // THREADS)[None, :, None] * THREADS
-           + np.arange(THREADS)[None, None, :]).ravel()
-    covered = np.sort(idx[idx < n_stars])
-    np.testing.assert_array_equal(covered, np.arange(n_stars))
+    """Each split kernel's chunk count is ceil(N / chunk), and 1 without
+    stars, whatever the walker count, and (chunk, step, thread) -> star,
+    over the offsets below the chunk, covers [0, N) once; N runs over every
+    kernel's own chunk boundaries."""
+    for name in SPLIT:
+        chunk = ops.KERNELS[name].star_chunk
+        chunks = star_chunks(n_stars, chunk)
+        assert chunks == max(1, -(-n_stars // chunk)), name
+        offsets = (np.arange(-(-chunk // THREADS))[:, None] * THREADS
+                   + np.arange(THREADS)[None, :]).ravel()
+        idx = (np.arange(chunks)[:, None] * chunk
+               + offsets[offsets < chunk][None, :]).ravel()
+        covered = np.sort(idx[idx < n_stars])
+        np.testing.assert_array_equal(covered, np.arange(n_stars), err_msg=name)
 
 
 _CTYPE = {"int": ctypes.c_int, "float": ctypes.c_float}
@@ -320,13 +409,9 @@ def test_cpu_wrapper_is_the_plain_version(kind):
     and launches nothing."""
     p_np, c_np = _inputs(kind, n_walkers=5, seed=3)
     params, *cols = _t(p_np, *c_np)
-    counter = DOUBLE_MODEL_GB if kind == "double_model_gb" else MODEL_MIXTURE
+    counter = _kernel(kind)
     before = counter.launches
-    if kind == "double_model_gb":
-        got = double_model_gb_lnlike_batched(params, *cols)
-    else:
-        got = model_mixture_lnlike_batched(params, *cols,
-                                           parametric_bg=kind == "model_mixture")
+    got = _batched(kind, params, cols)
     assert counter.launches == before
     assert torch.equal(got, _plain(kind, params, cols))
 
@@ -343,7 +428,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_split_kernels_on_card(kind, cuda_device):
-    """Kernels 6 and 8 (float32) against their float64 plain versions at the
+    """Kernels 5 to 8 (float32) against their float64 plain versions at the
     direct kernels' gate (rtol 2e-4, atol 5e-2), and batch invariance: the
     first 40 walkers of a 2048-walker batch (the wide tiles) evaluated alone
     (2-walker tiles) give the same bits, as do two calls."""
@@ -352,14 +437,11 @@ def test_split_kernels_on_card(kind, cuda_device):
                            device=cuda_device) for a in [p_np] + c_np]
 
     def run(params):
-        if kind == "double_model_gb":
-            return double_model_gb_lnlike_batched(params, *a32[1:])
-        return model_mixture_lnlike_batched(params, *a32[1:],
-                                            parametric_bg=kind == "model_mixture")
+        return _batched(kind, params, a32[1:])
 
     got, again, alone = run(a32[0]), run(a32[0]), run(a32[0][:40].contiguous())
-    want = _plain(kind, a32[0].double(), [t.double() for t in a32[1:]],
-                  tiny=FLOAT32_TINY)
+    kw = {} if kind == "double_model" else dict(tiny=FLOAT32_TINY)
+    want = _plain(kind, a32[0].double(), [t.double() for t in a32[1:]], **kw)
     torch.testing.assert_close(got.double(), want, rtol=2e-4, atol=5e-2)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     assert torch.equal(got[:40].view(torch.int32), alone.view(torch.int32))
