@@ -5,7 +5,7 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py              # every phase (what the check runs)
     python3 chip_smoke.py --profile    # also trace each main path with torch.profiler
-    python3 chip_smoke.py --chunk-sweep    # also time kernel 7 at several star chunks
+    python3 chip_smoke.py --chunk-sweep    # also time kernels 1, 3, 7 at several chunks
 
 It builds the port's CUDA kernels from ``mcmc_dynamics_tpu_torch/csrc``,
 checks each against its plain torch version at the shapes the main paths give
@@ -14,8 +14,10 @@ calls, and fails (non-zero exit) if any phase does:
 
 1. environment: torch, CUDA, the card, ``nvidia-smi``, ``nvcc`` and the build
    (ptxas registers and spills);
-2. kernel 1 (fixed-centre walker x star likelihood) against its float64 plain
-   version at 16384 walkers x 1e4 stars and at 32 walkers x 6284 stars;
+2. kernel 1 (fixed-centre walker x star likelihood, split over star
+   chunks) against its float64 plain version at 16384 walkers x 1e4 stars
+   and at path A's 32 walkers x 6400 stars; and its batch invariance, as in
+   phase 14;
 3. kernel 2 (tensor-Chebyshev tables) against its float64 plain version at
    16384 walkers and at path B's half-ensemble of 512 on the tables of a
    1e5-star mock catalog;
@@ -23,7 +25,8 @@ calls, and fails (non-zero exit) if any phase does:
    600 steps through kernel 1, goldens, profiles, and a bitwise resume;
 5. main path B, the tensor tier: 1e5-star mock, 1024 walkers x 200 steps
    through kernel 2, recovery of the truth;
-6. kernel 3 (free-centre walker x star likelihood), 7. kernel 4 (ConstantFit
+6. kernel 3 (free-centre walker x star likelihood, as kernel 1, with its
+   batch invariance), 7. kernel 4 (ConstantFit
    + fixed background) and 8. kernel 5 (ConstantFitGB density mixture, split
    over star chunks; also its batch invariance, as in phase 14) against
    their float64 plain versions at 16384 walkers x 1e4 stars and at their
@@ -60,14 +63,17 @@ calls, and fails (non-zero exit) if any phase does:
     20480, beside kernels 5 and 6 on the same inputs;
 26. main path H, the binned tier: path B's 1e5-star mock with the default
     unbounded a and r_peak priors, 1024 walkers x 200 steps through kernel 9,
-    recovery of the truth.
+    recovery of the truth;
+27. the tier crossover: kernel 1 and kernel 9 on one 16384-star catalog
+    (path H's mock at the star count where auto dispatch takes the binned
+    tier) at 512 walkers, each held to the exact star sum and timed.
 
 The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
 overflows the TPU kernels' forms; the port's kernels stay within the float64
-plain version's tolerance there.  ``--chunk-sweep`` also times kernel 7 at
-several star chunks (the kernel's chunk is an attribute of its launcher, so
-no rebuild is needed).
+plain version's tolerance there.  ``--chunk-sweep`` also times kernels 1, 3
+and 7 at several star chunks (the kernel's chunk is an attribute of its
+launcher, so no rebuild is needed).
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
@@ -205,66 +211,27 @@ def phase_environment():
     return smi
 
 
-def direct_inputs(n_walkers, n_stars, n_pad, seed, device):
-    """Random params and a star table with a masked zero padding tail; walker
-    0 has sigma_max = 0 and walker 1 has a = 0 (prior-legal boundaries), and
+def direct_inputs(device):
+    """Kernel 1's inputs at a (walkers, stars, masked tail) shape: random
+    params and a star table with a masked zero padding tail; walker 0 has
+    sigma_max = 0 and walker 1 has a = 0 (prior-legal boundaries), and
     walkers 2-4 r_peak 1e19, 1e20 and 1e37 (``LARGE_R_PEAK``)."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    params = np.column_stack([
-        rng.uniform(-5, 5, n_walkers), rng.uniform(5, 30, n_walkers),
-        rng.uniform(0.5, 10, n_walkers), rng.uniform(-10, 10, n_walkers),
-        rng.uniform(-10, 10, n_walkers), rng.uniform(0.5, 10, n_walkers)])
-    params[0, 1] = 0.0
-    params[1, 2] = 0.0
-    params[2:5, 5] = LARGE_R_PEAK
-    n = n_stars + n_pad
-    dxm, dym = np.zeros(n), np.zeros(n)
-    dxm[:n_stars], dym[:n_stars] = rng.normal(0, 3, (2, n_stars))
-    v, verr2, mask = np.zeros(n), np.zeros(n), np.zeros(n)
-    v[:n_stars] = 10 * rng.normal(size=n_stars)
-    verr2[:n_stars] = rng.uniform(0.5, 2.0, n_stars) ** 2
-    mask[:n_stars] = 1.0
-    cols = (dxm, dym, dxm * dxm + dym * dym, v, verr2, mask)
-
-    def on(dtype):
-        return [torch.as_tensor(a, dtype=dtype, device=device)
-                for a in (params,) + cols]
-    return on
-
-
-def phase_direct_kernel(device, shapes=((16384, 10_000, 240), (32, 6284, 116))):
-    """Kernel 1 against its plain version at (walkers, stars, padding) shapes:
-    the reference's canonical 16384 x 1e4 and the recipe's half-ensemble."""
-    import torch
-
-    from mcmc_dynamics_tpu_torch.ops import (model_lnlike_batched,
-                                             model_lnlike_reference)
-
-    rows = []
-    for n_walkers, n_stars, n_pad in shapes:
-        on = direct_inputs(n_walkers, n_stars, n_pad, seed=n_walkers, device=device)
-        a32, a64 = on(torch.float32), on(torch.float64)
-        got = model_lnlike_batched(*a32)
-        torch.cuda.synchronize()
-        ref = torch.cat([model_lnlike_reference(p, *a64[1:])
-                         for p in torch.split(a64[0], 2048)])
-        err = compare(f"model_lnlike W={n_walkers}", got, ref, **DIRECT_TOL)
-        ms = cuda_ms(lambda: model_lnlike_batched(*a32))
-        plain_ms = cuda_ms(lambda: model_lnlike_reference(*a32), reps=10)
-        n = n_stars + n_pad
-        flops, sfu = PAIR_COST["model_lnlike"]
-        pairs = n_walkers * n_stars
-        b_ms, b_by = bound_ms(4 * (7 * n_walkers + 6 * n), flops * pairs, sfu * pairs)
-        print(f"phase 2 kernel model_lnlike W={n_walkers} N={n} "
-              f"(masked tail {n_pad}): max_abs_err {err:.4g} vs float64 plain "
-              f"(rtol {DIRECT_TOL['rtol']}, atol {DIRECT_TOL['atol']}) | kernel "
-              f"{ms:.4f} ms | plain f32 {plain_ms:.4f} ms | bound {b_ms:.4f} ms "
-              f"({b_by})")
-        rows.append(dict(W=n_walkers, N=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-    return rows
+    def make(shape):
+        n_walkers, n_stars, n_pad = shape
+        rng = np.random.default_rng(n_walkers)
+        params = np.column_stack([
+            rng.uniform(-5, 5, n_walkers), rng.uniform(5, 30, n_walkers),
+            rng.uniform(0.5, 10, n_walkers), rng.uniform(-10, 10, n_walkers),
+            rng.uniform(-10, 10, n_walkers), rng.uniform(0.5, 10, n_walkers)])
+        params[0, 1] = 0.0
+        params[1, 2] = 0.0
+        params[2:5, 5] = LARGE_R_PEAK
+        dxm, dym = rng.normal(0, 3, (2, n_stars))
+        v = 10 * rng.normal(size=n_stars)
+        verr2 = rng.uniform(0.5, 2.0, n_stars) ** 2
+        stars = _padded(n_stars, n_pad, dxm, dym, dxm * dxm + dym * dym, v, verr2)
+        return _on(device, params, *stars), {}, {}, n_walkers * n_stars
+    return make
 
 
 def mock_catalog(n_stars, seed):
@@ -1265,6 +1232,51 @@ def phase_sufficient_mma(device, stats, k9_rows):
     return rows
 
 
+def phase_crossover(device, n_stars=16_384, n_walkers=512):
+    """Phase 27: kernel 1 (the direct tier) and kernel 9 (the binned tier)
+    on one catalog at the star count from which auto dispatch takes the
+    binned tier for a ModelFit with an unbounded a or r_peak prior (path H's
+    mock, cut to 16384 stars), at path H's half-ensemble of 512 walkers: each
+    against the exact float64 star sum at its gate, and timed."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import (model_lnlike_batched,
+                                             model_lnlike_reference,
+                                             model_sufficient_lnlike)
+
+    fit, _ = mock_fit(device, n_stars=n_stars, seed=5, bounded=False)
+    if fit.lnprob_tier() != "sufficient":
+        raise AssertionError(f"{n_stars} stars: tier {fit.lnprob_tier()}, expected "
+                             "sufficient")
+    stats = fit.sufficient_stats()
+    dx, dy = fit.fixed_center_offsets()
+    dx, dy = dx * (10800.0 / math.pi), dy * (10800.0 / math.pi)
+    cols = [torch.as_tensor(c, dtype=torch.float64, device=device) for c in
+            (dx, dy, dx * dx + dy * dy, fit.data.data.value("v", "km/s"),
+             fit.data.data.value("verr", "km/s") ** 2, np.ones_like(dx))]
+    cols32 = [c.float() for c in cols]
+    params = near_truth_params(n_walkers, seed=n_walkers, device=device)
+    exact = torch.cat([model_lnlike_reference(p, *cols)
+                       for p in torch.split(params.double(), 32)])
+    err1 = compare("crossover: kernel 1", model_lnlike_batched(params, *cols32), exact,
+                   **DIRECT_TOL)
+    err9 = compare("crossover: kernel 9", model_sufficient_lnlike(stats, params), exact,
+                   **TENSOR_TOL)
+    ms1 = cuda_ms(lambda: model_lnlike_batched(params, *cols32))
+    ms9 = cuda_ms(lambda: model_sufficient_lnlike(stats, params))
+    flops, sfu = PAIR_COST["model_lnlike"]
+    pairs = n_walkers * n_stars
+    b1, _ = bound_ms(4 * (7 * n_walkers + 6 * n_stars), flops * pairs, sfu * pairs)
+    b9, _ = sufficient_bound(stats, n_walkers, mma=False)
+    n_bins, n_coef, _ = stats.coeffs.shape
+    print(f"phase 27 tier crossover at {n_stars} stars, {n_walkers} walkers: kernel 1 "
+          f"(direct) {ms1:.4f} ms, bound {b1:.4f} ms, max_abs_err {err1:.4g} vs the "
+          f"exact star sum | kernel 9 (binned, B={n_bins} D={n_coef}) {ms9:.4f} ms, "
+          f"bound {b9:.4f} ms, max_abs_err {err9:.4g} | the "
+          f"{'direct' if ms1 < ms9 else 'binned'} tier is "
+          f"{max(ms1, ms9) / min(ms1, ms9):.2f}x faster")
+
+
 def model_gb_v2_inputs(device):
     """Kernel 13 on kernel 6's inputs (``radial_inputs``) without the per-star
     background row, which the Gaussian background does not read."""
@@ -1400,15 +1412,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mcmc_dynamics_tpu_torch.ops import (
-        DOUBLE_MODEL, KERNELS, background_logsumexp, background_logsumexp_reference,
+        DOUBLE_MODEL, KERNELS, MODEL_FREECENTER, MODEL_LNLIKE, background_logsumexp,
+        background_logsumexp_reference,
         constant_gb_lnlike_batched, constant_gb_lnlike_reference,
         constant_gb_v2_lnlike_batched, constant_gb_v2_lnlike_reference,
         constant_mixture_lnlike_reference, double_model_gb_lnlike_batched,
         double_model_gb_lnlike_reference, double_model_lnlike_batched,
         double_model_lnlike_reference, model_freecenter_lnlike_batched,
         model_freecenter_lnlike_reference, model_gb_v2_lnlike_batched,
-        model_gb_v2_lnlike_reference, model_mixture_lnlike_batched,
-        model_mixture_lnlike_reference)
+        model_gb_v2_lnlike_reference, model_lnlike_batched, model_lnlike_reference,
+        model_mixture_lnlike_batched, model_mixture_lnlike_reference)
 
     def drive(label, fn, expect):
         """Run one main path with every launch count at 0 before it; the
@@ -1427,7 +1440,12 @@ def main(argv=None) -> int:
 
     launches = dict.fromkeys(KERNELS, 0)
     smi = phase_environment()
-    direct = phase_direct_kernel(device)
+    big, half = (16384, 10_000, 240), (128, 20_480, 0)
+    path_shape = (32, 6284, 116)                # paths A and D: 6400 stars
+    direct = pair_kernel_phase(
+        2, "model_lnlike", model_lnlike_batched, model_lnlike_reference,
+        direct_inputs(device), (big, path_shape), DIRECT_TOL, rows_k=6, cols_k=6)
+    batch_invariance(2, "model_lnlike", model_lnlike_batched, direct_inputs(device), big)
     mock_b, truth = mock_fit(device, n_stars=100_000, seed=5)
     tensor = phase_tensor_kernel(device, mock_b)
 
@@ -1452,8 +1470,18 @@ def main(argv=None) -> int:
 
     freecenter = pair_kernel_phase(
         6, "model_freecenter", model_freecenter_lnlike_batched,
-        model_freecenter_lnlike_reference, freecenter_inputs(device),
-        ((16384, 10_000, 240), (32, 6284, 116)), DIRECT_TOL, rows_k=8, cols_k=8)
+        model_freecenter_lnlike_reference, freecenter_inputs(device), (big, path_shape),
+        DIRECT_TOL, rows_k=8, cols_k=8)
+    batch_invariance(6, "model_freecenter", model_freecenter_lnlike_batched,
+                     freecenter_inputs(device), big)
+    if "--chunk-sweep" in args:
+        for kernel, name, run, inputs in (
+                (MODEL_LNLIKE, "model_lnlike", model_lnlike_batched,
+                 direct_inputs(device)),
+                (MODEL_FREECENTER, "model_freecenter", model_freecenter_lnlike_batched,
+                 freecenter_inputs(device))):
+            chunk_sweep(kernel, name, run, inputs, (path_shape, big),
+                        (256, 512, 1024, 2048, 4096))
     mixture = pair_kernel_phase(
         7, "constant_mixture", constant_mixture_split,
         constant_mixture_lnlike_reference, constant_inputs(device, gb=False),
@@ -1494,7 +1522,6 @@ def main(argv=None) -> int:
     path_line(13, "E2 (ConstantFit + SingleStars, kernels 10 and 4)", path_e2,
               f" | set-up with the KDE {path_e2['setup_s']:.3f} s")
 
-    big, half = (16384, 10_000, 240), (128, 20_480, 0)
     model_mixture = pair_kernel_phase(
         14, "model_mixture", model_mixture_lnlike_batched, model_mixture_lnlike_reference,
         radial_inputs(device, "model_mixture"), (big, half), DIRECT_TOL, rows_k=8,
@@ -1564,15 +1591,16 @@ def main(argv=None) -> int:
           f"{json.dumps({k: round(float(v), 4) for k, v in path_h['medians'].items()})} "
           f"(truth v_sys {truth_h['v_sys']}, sigma_max {truth_h['sigma_max']}; JAX "
           f"float64 {H_REFERENCE}) | launches {path_h['launches']}")
+    phase_crossover(device)
 
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
         fit_d, _ = freecenter_fit(device)
         for label, fit, n_walkers, names in (
-                ("A", fit_a, 64, ["model_lnlike_kernel"]),
-                ("B", mock_b, 1024, ["model_tensor_kernel"]),
-                ("C", fit_c, 64, []), ("D", fit_d, 64, ["model_freecenter_kernel"]),
+                ("A", fit_a, 64, ["model_lnlike_kernel", "sum_chunks_kernel<1>"]),
+                ("B", mock_b, 1024, ["model_tensor_kernel"]), ("C", fit_c, 64, []),
+                ("D", fit_d, 64, ["model_freecenter_kernel", "sum_chunks_kernel<3>"]),
                 ("E1", path_e1["fit"], 256,
                  ["constant_gb_kernel", "sum_chunks_kernel<5>"]),
                 ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"]),

@@ -1,15 +1,16 @@
-// Shared pieces of the walker x star reductions (kernels 3 to 8).
+// Shared pieces of the walker x star reductions (kernels 1 and 3 to 8).
 //
 // Layout common to them: one block of kThreads threads per tile of TW
-// walkers, the tile's per-walker constants in registers, threads striding over
-// the stars with coalesced loads of the star rows, and per-thread partial sums
-// that block_reduce folds in a FIXED order (warp shuffle, then across warps in
-// warp order).  No atomics: a walker's result does not depend on the batch it
+// walkers, the tile's per-walker constants in registers (in shared memory for
+// kernels 1 and 3: tile_constants), threads striding over the stars with
+// coalesced loads of the star rows, and per-thread partial sums that
+// block_reduce (or block_reduce_spread, the same bits) folds in a FIXED order
+// (warp shuffle, then across warps in warp order).  No atomics: a walker's result does not depend on the batch it
 // is evaluated in, which is what keeps a checkpoint resume bitwise.
 //
-// The split form (split_reduce, kernels 5 to 8) also cuts the star axis into
-// chunks over blockIdx.y, so that a half-ensemble of 32 or 128 walkers still
-// fills the card: each block writes one partial sum per walker into a
+// The split form (split_reduce, kernels 1 and 3 to 8) also cuts the star axis
+// into chunks over blockIdx.y, so that a half-ensemble of 32 or 128 walkers
+// still fills the card: each block writes one partial sum per walker into a
 // (chunks, W) buffer, and sum_chunks_kernel adds them in chunk order.  The
 // caller chooses the chunks (ops/lnlike_kernels.py: each kernel's own chunk
 // size, so their count is a function of the star count alone), and
@@ -45,6 +46,44 @@ __device__ __forceinline__ void block_reduce(const float (&vals)[NV],
   __syncthreads();
 }
 
+// block_reduce in fewer instructions (kernels 1 and 3), for TW a power of two
+// up to 32: the same warp sums, bit for bit.  Each walker's tree adds the same
+// pairs of partial sums as block_reduce's shuffle-down tree (lane i and lane
+// i + off, off = 16, 8, ..., 1; the order of two operands does not change an
+// IEEE sum).  At each of the first log2(TW) levels a lane keeps half of its
+// walkers (the upper half where bit ``off`` of its lane is set) and trades the
+// other half with lane ^ off, so the level takes TW / 2^level shuffles, not
+// TW; afterwards lane l holds walker l / (32 / TW).
+template <int TW>
+__device__ __forceinline__ void block_reduce_spread(const float (&vals)[TW],
+                                                    float (*red)[kWarps]) {
+  static_assert(TW >= 1 && TW <= 32 && (TW & (TW - 1)) == 0, "TW: a power of two");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float v[TW];
+#pragma unroll
+  for (int k = 0; k < TW; ++k) v[k] = vals[k];
+#pragma unroll
+  for (int level = 0; level < 5; ++level) {
+    const int off = 16 >> level;
+    const int n = TW >> level;               // walkers a lane still holds
+    if (n >= 2) {
+      const bool upper = lane & off;
+#pragma unroll
+      for (int p = 0; p < n / 2; ++p) {
+        const float keep = upper ? v[p + n / 2] : v[p];
+        const float send = upper ? v[p] : v[p + n / 2];
+        v[p] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+    }
+  }
+  constexpr int kLanes = 32 / TW;            // lanes that hold one walker's sum
+  if (lane % kLanes == 0) red[lane / kLanes][warp] = v[0];
+  __syncthreads();
+}
+
 // The k-th block sum, added over the warps in warp order.
 __device__ __forceinline__ float block_total(float (*red)[kWarps], int k) {
   float s = 0.0f;
@@ -57,20 +96,40 @@ __device__ __forceinline__ float block_total(float (*red)[kWarps], int k) {
 // half-ensembles of a small run need the blocks that 2 walkers a tile give.
 inline int walker_tile(int n_walkers) { return n_walkers >= 2048 ? 8 : 2; }
 
+// A tile's per-walker constants, computed once a block: thread k < TW sets
+// those of walker min(w0 + k, n_walkers - 1) in shared memory (the ragged
+// last tile repeats the last walker and never writes it) through
+// ``set(T&, int walker)``; returns them, for every thread, after the block's
+// barrier.  No thread spends TW x the divisions (and kernel 3's sines) on a
+// chunk of a few stars, and the pairs read the constants from shared memory
+// (a broadcast load), not from registers, which leaves room for more blocks
+// an SM: for sm_90a kernels 1 and 3 take 32 registers at 2 walkers a tile
+// and 32 and 48 at 8 (99 and 128, two blocks an SM, with the constants in
+// registers).
+template <int TW, class T, class Set>
+__device__ __forceinline__ const T* tile_constants(int w0, int n_walkers, Set set) {
+  __shared__ T shared[TW];
+  if (threadIdx.x < TW) set(shared[threadIdx.x], min(w0 + static_cast<int>(threadIdx.x),
+                                                     n_walkers - 1));
+  __syncthreads();
+  return shared;
+}
+
 // The split walker x star reduction, run by every thread of a block of
 // kThreads: the block takes walker tile blockIdx.x (walkers w0 .. w0 + TW)
 // and chunk c = blockIdx.y (stars c * star_chunk onwards), and writes the
-// tile's sum over the chunk to dst[c * n_walkers + w].  ``body`` holds the
-// tile's per-walker constants and gives
+// tile's sum over the chunk to dst[c * n_walkers + w], folded by block_reduce
+// (by block_reduce_spread with ``kSpread``: kernels 1 and 3).  ``body`` holds
+// the tile's per-walker constants and gives
 //
 //   typename Body::Star load(int i)    star row i
 //   bool live(const Star&)             unmasked
-//   float term(int k, const Star&)     the pair (walker w0 + k, star)
+//   float term(int k, const Star&)     the pair (walker k of the tile, star)
 //
 // G stars a thread and step, at stride kThreads (coalesced), give each
 // thread G x TW independent pairs.  Lanes past the chunk re-read a star (no
 // predicated loads) and are selected away with the masked stars.
-template <int TW, int G, class Body>
+template <int TW, int G, bool kSpread = false, class Body>
 __device__ __forceinline__ void split_reduce(const Body& body, int w0, int n_walkers,
                                              int n_stars, int star_chunk,
                                              float* __restrict__ dst) {
@@ -98,7 +157,10 @@ __device__ __forceinline__ void split_reduce(const Body& body, int w0, int n_wal
     }
   }
   __shared__ float red[TW][kWarps];
-  block_reduce<TW>(acc, red);
+  if constexpr (kSpread)
+    block_reduce_spread<TW>(acc, red);
+  else
+    block_reduce<TW>(acc, red);
   if (threadIdx.x < TW && w0 + threadIdx.x < n_walkers)
     dst[static_cast<size_t>(c) * n_walkers + w0 + threadIdx.x] =
         block_total(red, threadIdx.x);

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Per-pair instructions of the star loops of kernels 6 and 8, read from SASS.
+"""Per-pair instructions of the star loops of kernels 1, 3, 6 and 8, read
+from SASS.
 
 Run from the root of the repository, on a machine with the CUDA toolkit:
 
@@ -7,12 +8,15 @@ Run from the root of the repository, on a machine with the CUDA toolkit:
 
 It builds the port's kernels (``mcmc_dynamics_tpu_torch.ops._build``), runs
 ``cuobjdump -sass`` on the library and, for each instantiation of
-``model_mixture_kernel`` and ``double_model_gb_kernel``, finds the star loop:
-the smallest loop (a backward branch) that issues MUFU operations.  Its
-MUFU.EX2 count is its pair count (one ``expf`` a pair), and it prints, per
-pair, the FP32 flops (FFMA x 2 + FMUL + FADD) and the MUFU operations by
-function.  This is what the compiled code issues, not what the function needs:
-``chip_smoke.PAIR_COST`` counts the latter, for the bounds.
+``model_lnlike_kernel``, ``model_freecenter_kernel``, ``model_mixture_kernel``
+and ``double_model_gb_kernel``, finds the star loop: the smallest loop (a
+backward branch) that issues MUFU operations.  Its pair count is its
+MUFU.EX2 count in kernels 6 and 8 (one ``expf`` a pair) and half its
+MUFU.RSQ count in kernels 1 and 3 (two ``rsqrtf`` a pair, no ``expf``), and
+it prints, per pair, the instructions, the FP32 flops (FFMA x 2 + FMUL +
+FADD) and the MUFU operations by function.  This is what the compiled code
+issues, not what the function needs: ``chip_smoke.PAIR_COST`` counts the
+latter, for the bounds.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ import re
 import subprocess
 from collections import Counter
 
-KERNELS = ("model_mixture_kernel", "double_model_gb_kernel")
+# kernel -> (the MUFU function that counts its pairs, its operations a pair)
+KERNELS = {"model_lnlike_kernel": ("RSQ", 2), "model_freecenter_kernel": ("RSQ", 2),
+           "model_mixture_kernel": ("EX2", 1), "double_model_gb_kernel": ("EX2", 1)}
 
 
 def star_loop_counts(sass: str) -> list[str]:
@@ -52,7 +58,8 @@ def star_loop_counts(sass: str) -> list[str]:
         if not loops:
             continue
         ops = min(loops, key=lambda x: x[0])[1]
-        pairs = ops["MUFU.EX2"]
+        function, per_pair = KERNELS[kernel]
+        pairs = ops[f"MUFU.{function}"] / per_pair
         if not pairs:
             continue
         mufu = {o[5:]: n / pairs for o, n in ops.items() if o.startswith("MUFU")}
@@ -62,8 +69,9 @@ def star_loop_counts(sass: str) -> list[str]:
         tag = f"{kernel}<{template.group(1)}" + (
             f", {'true' if template.group(3) == '1' else 'false'}>"
             if template.group(2) else ">")
-        lines.append(f"{tag}: star loop of {pairs} pairs, per pair {flops:g} FP32 flops "
-                     f"(FFMA {fp32['FFMA']:g}, FMUL {fp32['FMUL']:g}, FADD "
+        lines.append(f"{tag}: star loop of {pairs:g} pairs, per pair "
+                     f"{sum(ops.values()) / pairs:.3g} instructions, {flops:g} FP32 "
+                     f"flops (FFMA {fp32['FFMA']:g}, FMUL {fp32['FMUL']:g}, FADD "
                      f"{fp32['FADD']:g}) and {sum(mufu.values()):g} MUFU {mufu}")
     return lines
 

@@ -1,12 +1,14 @@
-"""The split walker x star reduction of kernels 5 to 8 (``walker_reduce.cuh``).
+"""The split walker x star reduction of kernels 1, 3 and 5 to 8
+(``walker_reduce.cuh``).
 
 A torch emulation of what the CUDA kernels compute, in their order: each
 pair term as the source writes it (the rotation terms of kernels 7 and 8
-over correctly rounded reciprocals, kernel 6's member term scaled per
-walker), tail and masked
-stars selected away, per thread the stars of a chunk at stride 256 in
-increasing order, the warp-shuffle tree, the warps in order, then the chunks
-of the kernel's own ``star_chunk`` stars in order.  In float64 it is held to
+over correctly rounded reciprocals, the member term of kernels 1, 3 and 6
+scaled per walker, with log 2 pi in each live pair of kernels 1, 3 and 7),
+tail and masked stars selected away, per thread the stars of a chunk at
+stride 256 in increasing order, the warp-shuffle tree, the warps in order,
+then the chunks of the kernel's own ``star_chunk`` stars in order (added by
+a second launch).  In float64 it is held to
 the plain versions and to the JAX package's Pallas kernels in interpret mode
 (rtol 1e-10) on inputs with every boundary the kernels must survive; in
 float32 to the float64 plain versions at the direct kernels' gate.  Also:
@@ -37,13 +39,27 @@ CSRC = pathlib.Path(ops.__file__).resolve().parents[1] / "csrc"
 LOG_2PI = math.log(2.0 * math.pi)
 THREADS, WARP = 256, 32
 FLOAT32_TINY = float(torch.finfo(torch.float32).tiny)
-KINDS = ["constant_gb", "model_mixture", "model_mixture_lnb", "double_model",
-         "double_model_gb"]
-SPLIT = ["constant_gb", "model_mixture", "double_model", "double_model_gb"]
+KINDS = ["model_lnlike", "model_freecenter", "constant_gb", "model_mixture",
+         "model_mixture_lnb", "double_model", "double_model_gb"]
+SPLIT = ["model_lnlike", "model_freecenter", "constant_gb", "model_mixture",
+         "double_model", "double_model_gb"]
+# the kernels without a density mixture: no normaliser clamp (``tiny``)
+NO_TINY = {"model_lnlike", "model_freecenter", "double_model"}
+# kernel 3's reference centre (omega Cen) and the sine and cosine of its
+# declination
+RA0, DEC0 = math.radians(201.697), math.radians(-47.48)
+S0, C0 = math.sin(DEC0), math.cos(DEC0)
 
 
 def _kernel(kind):
     return ops.KERNELS[kind.replace("_lnb", "")]
+
+
+def _function(module, kind, what):
+    """``module``'s ``*_lnlike_batched`` or ``*_lnlike_reference`` of
+    ``kind`` (kernel 1's are ``model_lnlike_*``)."""
+    base = kind.replace("_lnb", "").removesuffix("_lnlike")
+    return getattr(module, f"{base}_lnlike_{what}")
 
 
 # ----------------------------------------------------------------- the emulation
@@ -103,23 +119,44 @@ def _constant_gb_terms(params, gx, gy, v, verr2, density, ln_density, tiny):
     return _mixture_term(ln_c, ln_b, torch.log(f_back), f_back, density, ln_density, tiny)
 
 
-def _model_mixture_terms(params, dxm, dym, r2, v, verr2, density, ln_density, lnb,
-                         parametric, tiny):
-    """csrc/model_mixture.cu's Tile::term for every (walker, star): q and
-    the rotation's numerator scaled per walker (csrc/lynden_bell.cuh)."""
-    p = params[:, :, None]
+def _member_ln_c(p, dxm, dym, r2, v, verr2):
+    """The member term of kernels 1, 3 and 6 as a log-density per pair,
+    ``-1/2 ((t^2 + log n) + log 2 pi)`` (csrc/lynden_bell.cuh's
+    Member::term): q and the rotation's numerator scaled per walker."""
     sigma2, inv_a2 = p[:, 1] * p[:, 1], 1.0 / (p[:, 2] * p[:, 2])
     wide = p[:, 5].abs() >= 1.0
     c = torch.where(wide, 1.0 / p[:, 5], p[:, 5])
     qa = torch.where(wide, c * c, torch.ones_like(c))
     qb = torch.where(wide, torch.ones_like(c), p[:, 5] * p[:, 5])
     vx2, vy2 = 2.0 * p[:, 3] * c, 2.0 * p[:, 4] * c
-    f_back = p[:, -1]
     q = r2 * qa + qb
     d = q * (p[:, 0] - v) + (dym * vx2 - dxm * vy2)
     norm = verr2 + sigma2 * torch.rsqrt(r2 * inv_a2 + 1.0)
     t = d * torch.rsqrt(q * q * norm)
-    ln_c = -0.5 * ((t * t + torch.log(norm)) + LOG_2PI)
+    return -0.5 * ((t * t + torch.log(norm)) + LOG_2PI)
+
+
+def _model_freecenter_terms(params, dx0, dy0, pm, qm, b0, v, verr2):
+    """csrc/model_freecenter.cu's Tile::term: the projection at each
+    walker's centre (four per-walker sines), then kernel 1's pair."""
+    p = params[:, :, None]
+    he, hn = torch.sin(0.5 * p[:, 6]), torch.sin(0.5 * p[:, 7])
+    ue, un = torch.sin(p[:, 6]), torch.sin(p[:, 7])
+    we, wn = 2.0 * he * he, 2.0 * hn * hn
+    rdel = qm * ue - pm * we
+    dx = dx0 + (pm * ue + qm * we)
+    a_w = dy0 - S0 * rdel
+    b_w = b0 + C0 * rdel
+    dy = a_w - (wn * a_w + un * b_w)
+    return _member_ln_c(p, dx, dy, dx * dx + dy * dy, v, verr2)
+
+
+def _model_mixture_terms(params, dxm, dym, r2, v, verr2, density, ln_density, lnb,
+                         parametric, tiny):
+    """csrc/model_mixture.cu's Tile::term for every (walker, star)."""
+    p = params[:, :, None]
+    f_back = p[:, -1]
+    ln_c = _member_ln_c(p, dxm, dym, r2, v, verr2)
     if parametric:
         ln_b = _log_gauss(v - p[:, 6], torch.rsqrt(verr2 + p[:, 7] * p[:, 7]))
     else:
@@ -162,7 +199,11 @@ def emulate(kind, params, cols, tiny):
     """The split kernel ``kind``, in its order, in its chunks and in the
     dtype of its inputs."""
     *rows, mask = cols
-    if kind == "constant_gb":
+    if kind == "model_lnlike":
+        terms = _member_ln_c(params[:, :, None], *rows)
+    elif kind == "model_freecenter":
+        terms = _model_freecenter_terms(params, *rows)
+    elif kind == "constant_gb":
         terms = _constant_gb_terms(params, *rows, tiny)
     elif kind == "double_model":
         terms = _double_model_terms(params, *rows)
@@ -177,7 +218,9 @@ def emulate(kind, params, cols, tiny):
 # r_peak of boundary walkers: (walker, columns, value); r_peak^2 overflows
 # float32 from ~1.8e19, a product of the double models' x^2 + r_peak^2 from
 # ~1e13, and their 2 r_peak v_max near 1e37
-RPEAK_WALKERS = {"model_mixture": [(5, [5], 1e19), (6, [5], 1e20), (7, [5], 1e37)],
+RPEAK_WALKERS = {"model_lnlike": [(4, [5], 1e13), (5, [5], 1e19), (6, [5], 1e20),
+                                  (7, [5], 1e37)],
+                 "model_mixture": [(5, [5], 1e19), (6, [5], 1e20), (7, [5], 1e37)],
                  "double_model": [(5, [5], 1e20), (6, [5, 8], 1e13), (7, [5], 1e37),
                                   (8, [5, 8], 3e38)]}
 
@@ -186,10 +229,11 @@ def _inputs(kind, n_walkers=11, n_stars=2 * 2048 + 333, n_masked=61, seed=13):
     """Params and star rows (float64 numpy) of ``kind`` with every boundary:
     walker 0 at sigma_max = 0, walker 1 at a = 0 (the kernels with a), the
     mixtures' walkers 2 and 3 at f_back = 0, the double models' walker 4
-    with its second component at v_max = 0, walkers 5-8 at the r_peak of
-    ``RPEAK_WALKERS`` (the prior allows any r_peak); a star of density 1e-300
-    (0 in float32), and a masked tail of zero padding that leaves the star
-    count no multiple of any chunk."""
+    with its second component at v_max = 0, walkers 4-8 at the r_peak of
+    ``RPEAK_WALKERS`` (the prior allows any r_peak), kernel 3's last walker
+    5 degrees off the reference centre; a star of density 1e-300 (0 in
+    float32), and a masked tail of zero padding that leaves the star count
+    no multiple of any chunk."""
     rng = np.random.default_rng(seed)
     n = n_stars + n_masked
     dxm, dym, v, verr2, mask = (np.zeros(n) for _ in range(5))
@@ -217,22 +261,38 @@ def _inputs(kind, n_walkers=11, n_stars=2 * 2048 + 333, n_masked=61, seed=13):
     params = [rng.uniform(-5, 5, w), rng.uniform(5, 30, w), rng.uniform(0.5, 10, w),
               rng.uniform(-10, 10, w), rng.uniform(-10, 10, w), rng.uniform(0.5, 10, w)]
     double = kind.startswith("double")
+    direct = kind in ("model_lnlike", "model_freecenter")
     if double:
         params += [rng.uniform(-5, 5, w), rng.uniform(-5, 5, w), rng.uniform(0.2, 5, w)]
-    if kind != "double_model":
+    elif kind == "model_freecenter":
+        params += [3e-4 * rng.normal(size=w), 3e-4 * rng.normal(size=w)]
+    if kind not in NO_TINY:
         params += background[2:] if kind == "model_mixture_lnb" else background
     params = np.column_stack(params)
     params[0, 1] = 0.0
     params[1, 2] = 0.0
-    if kind != "double_model":
+    if kind not in NO_TINY:
         params[2:4, -1] = 0.0
     if double:
         params[4, 6:8] = 0.0
-    for walker, cols, value in RPEAK_WALKERS["double_model" if double else "model_mixture"]:
+    rpeak = "double_model" if double else "model_lnlike" if direct else "model_mixture"
+    for walker, cols, value in RPEAK_WALKERS[rpeak]:
         if walker < n_walkers:
             params[walker, cols] = value
+    if kind == "model_freecenter":
+        params[-1, 6:] = math.radians(5.0), math.radians(-5.0)
+        # stars within ~6 arcmin of the reference centre, and its float64
+        # projection constants (ops.model_freecenter_lnlike_reference)
+        ra = RA0 + 1.7e-3 * rng.normal(size=n)
+        dec = DEC0 + 1.7e-3 * rng.normal(size=n)
+        m_rad = 10800.0 / math.pi
+        pm = m_rad * np.cos(dec) * np.cos(ra - RA0) * mask
+        qm = m_rad * np.cos(dec) * np.sin(ra - RA0) * mask
+        sm = m_rad * np.sin(dec) * mask
+        rows = [-qm, sm * C0 - pm * S0, pm, qm, sm * S0 + pm * C0, v, verr2]
+        return params, rows + [mask]
     rows = [dxm, dym, dxm * dxm + dym * dym, v, verr2]
-    if kind != "double_model":
+    if kind not in NO_TINY:
         rows += [density, np.log(density)]
     if kind.startswith("model_mixture"):
         lnb = -0.5 * (np.log(2 * math.pi * (verr2 + 2500.0))
@@ -246,12 +306,14 @@ def _t(*arrays):
 
 
 def _plain(kind, params, cols, **kw):
-    if kind == "double_model":
-        return ops.double_model_lnlike_reference(params, *cols)
+    if kind == "model_freecenter":
+        return ops.model_freecenter_lnlike_reference(params, *cols, s0=S0, c0=C0)
+    if kind in NO_TINY:
+        return _function(ops, kind, "reference")(params, *cols)
     if kind.startswith("model_mixture"):
         return model_mixture_lnlike_reference(params, *cols,
                                               parametric_bg=kind == "model_mixture", **kw)
-    return getattr(ops, f"{kind}_lnlike_reference")(params, *cols, **kw)
+    return _function(ops, kind, "reference")(params, *cols, **kw)
 
 
 def _batched(kind, params, cols):
@@ -259,7 +321,9 @@ def _batched(kind, params, cols):
     if kind.startswith("model_mixture"):
         return model_mixture_lnlike_batched(params, *cols,
                                             parametric_bg=kind == "model_mixture")
-    return getattr(ops, f"{kind}_lnlike_batched")(params, *cols)
+    if kind == "model_freecenter":
+        return ops.model_freecenter_lnlike_batched(params, *cols, s0=S0, c0=C0)
+    return _function(ops, kind, "batched")(params, *cols)
 
 
 # ----------------------------------------------------------------- tests
@@ -272,7 +336,7 @@ def test_emulation_matches_plain_version(kind, tiny):
     and 3 (f_back = 0) keep the member branch alone."""
     p_np, c_np = _inputs(kind)
     params, *cols = _t(p_np, *c_np)
-    kw = {} if tiny is None or kind == "double_model" else dict(tiny=tiny)
+    kw = {} if tiny is None or kind in NO_TINY else dict(tiny=tiny)
     got = emulate(kind, params, cols, tiny=torch.finfo(torch.float64).tiny
                   if tiny is None else tiny)
     want = _plain(kind, params, cols, **kw)
@@ -289,10 +353,9 @@ def test_emulation_matches_pallas_interpret(kind):
 
     p_np, c_np = _inputs(kind, seed=29)
     kw = (dict(parametric_bg=kind == "model_mixture") if kind.startswith("model_mixture")
-          else {})
-    base = kind.replace("_lnb", "")
+          else dict(s0=S0, c0=C0) if kind == "model_freecenter" else {})
     with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(getattr(jax_ops, f"{base}_lnlike_batched")(
+        want = np.asarray(_function(jax_ops, kind, "batched")(
             *(jnp.asarray(a) for a in [p_np] + c_np), **kw, walker_tile=8,
             star_chunk=512))
     params, *cols = _t(p_np, *c_np)
@@ -306,15 +369,60 @@ def test_float32_emulation_matches_plain_version(kind):
     """The kernels' arithmetic and order in float32, as on the card, against
     the float64 plain version of the same float32 inputs at the direct
     kernels' gate (rtol 2e-4, atol 5e-2).  The walkers at r_peak 1e13 to
-    3e38 stay finite and within it: no r_peak^2 or 2 r_peak v_max is formed
-    in float32."""
+    3e38 (1e37 for kernels 1, 3 and 6) stay finite and within it: no
+    r_peak^2 or 2 r_peak v_max is formed in float32."""
     p_np, c_np = _inputs(kind, seed=17)
     params, *cols = [t.float() for t in _t(p_np, *c_np)]
     got = emulate(kind, params, cols, tiny=FLOAT32_TINY)
     assert got.dtype == torch.float32 and torch.isfinite(got).all(), got
-    kw = {} if kind == "double_model" else dict(tiny=FLOAT32_TINY)
+    kw = {} if kind in NO_TINY else dict(tiny=FLOAT32_TINY)
     want = _plain(kind, params.double(), [c.double() for c in cols], **kw)
     torch.testing.assert_close(got.double(), want, rtol=2e-4, atol=5e-2)
+
+
+def _shuffle_down_tree(vals):
+    """walker_reduce::block_reduce's warp sum of each walker: lane i adds
+    lane i + off for off = 16, 8, ..., 1; lane 0's value.  ``vals`` (32,
+    TW) float32."""
+    s = vals.copy()
+    off = WARP // 2
+    while off:
+        s[:WARP - off] = s[:WARP - off] + s[off:]
+        off //= 2
+    return s[0]
+
+
+def _spread_tree(vals):
+    """walker_reduce::block_reduce_spread's warp sums: at each level a lane
+    keeps half of its walkers (the upper half where bit ``off`` of its lane
+    is set) and adds its partner's (lane ^ off) values of those walkers;
+    afterwards lane l holds walker l / (32 / TW)."""
+    tw = vals.shape[1]
+    lanes = np.arange(WARP)
+    v = vals.copy()
+    for level in range(5):
+        off, n = 16 >> level, tw >> level
+        upper = (lanes & off) > 0
+        if n >= 2:
+            keep = np.where(upper[:, None], v[:, n // 2:n], v[:, :n // 2])
+            send = np.where(upper[:, None], v[:, :n // 2], v[:, n // 2:n])
+            v = keep + send[lanes ^ off]
+        else:
+            v = v[:, :1] + v[lanes ^ off, :1]
+    return v[::WARP // tw, 0]
+
+
+@pytest.mark.parametrize("tw", [2, 4, 8])
+def test_spread_reduction_is_the_shuffle_down_tree(tw):
+    """Kernels 1 and 3 fold a block's per-thread sums with
+    block_reduce_spread, in fewer shuffles than block_reduce: its warp sums
+    are block_reduce's bit for bit (float32, magnitudes over six decades),
+    so the emulation's order holds for both."""
+    rng = np.random.default_rng(tw)
+    vals = (rng.normal(size=(WARP, tw)) * 10.0 ** rng.uniform(-3, 3, (WARP, tw))
+            ).astype(np.float32)
+    np.testing.assert_array_equal(_spread_tree(vals).view(np.int32),
+                                  _shuffle_down_tree(vals).view(np.int32))
 
 
 def test_boundary_walkers_differ_from_the_clamped_form():
@@ -343,12 +451,13 @@ def test_boundary_walkers_differ_from_the_clamped_form():
 
 
 def test_split_kernels_have_their_own_chunk():
-    """Kernels 5 to 8 split the stars, each in chunks of its own size (the
-    others take none); kernels 5, 6 and 8 keep PR 5's 2048, kernel 7 takes
-    smaller ones for G1's 32 walkers."""
+    """Kernels 1, 3 and 5 to 8 split the stars, each in chunks of its own
+    size (the others take none): 2048 for kernels 5, 6 and 8, smaller ones
+    for the 32 walkers of paths A, D and G1 (kernels 1, 3 and 7)."""
     chunks = {name: kernel.star_chunk for name, kernel in ops.KERNELS.items()
               if kernel.star_chunk is not None}
-    assert chunks == {"constant_gb": 2048, "model_mixture": 2048, "double_model": 512,
+    assert chunks == {"model_lnlike": 512, "model_freecenter": 512,
+                      "constant_gb": 2048, "model_mixture": 2048, "double_model": 512,
                       "double_model_gb": 2048}
 
 
@@ -428,10 +537,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_split_kernels_on_card(kind, cuda_device):
-    """Kernels 5 to 8 (float32) against their float64 plain versions at the
-    direct kernels' gate (rtol 2e-4, atol 5e-2), and batch invariance: the
-    first 40 walkers of a 2048-walker batch (the wide tiles) evaluated alone
-    (2-walker tiles) give the same bits, as do two calls."""
+    """Kernels 1, 3 and 5 to 8 (float32) against their float64 plain
+    versions at the direct kernels' gate (rtol 2e-4, atol 5e-2), and batch
+    invariance: the first 40 walkers of a 2048-walker batch (the wide
+    tiles) evaluated alone (2-walker tiles) give the same bits, as do two
+    calls."""
     p_np, c_np = _inputs(kind, n_walkers=2048)
     a32 = [torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float32,
                            device=cuda_device) for a in [p_np] + c_np]
@@ -440,7 +550,7 @@ def test_split_kernels_on_card(kind, cuda_device):
         return _batched(kind, params, a32[1:])
 
     got, again, alone = run(a32[0]), run(a32[0]), run(a32[0][:40].contiguous())
-    kw = {} if kind == "double_model" else dict(tiny=FLOAT32_TINY)
+    kw = {} if kind in NO_TINY else dict(tiny=FLOAT32_TINY)
     want = _plain(kind, a32[0].double(), [t.double() for t in a32[1:]], **kw)
     torch.testing.assert_close(got.double(), want, rtol=2e-4, atol=5e-2)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
