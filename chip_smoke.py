@@ -5,7 +5,7 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py              # every phase (what the check runs)
     python3 chip_smoke.py --profile    # also trace each main path with torch.profiler
-    python3 chip_smoke.py --chunk-sweep    # also time kernels 1, 3, 7 at several chunks
+    python3 chip_smoke.py --chunk-sweep    # also time kernels 1-4, 7 at several chunks
 
 It builds the port's CUDA kernels from ``mcmc_dynamics_tpu_torch/csrc``,
 checks each against its plain torch version at the shapes the main paths give
@@ -18,20 +18,21 @@ calls, and fails (non-zero exit) if any phase does:
    chunks) against its float64 plain version at 16384 walkers x 1e4 stars
    and at path A's 32 walkers x 6400 stars; and its batch invariance, as in
    phase 14;
-3. kernel 2 (tensor-Chebyshev tables) against its float64 plain version at
-   16384 walkers and at path B's half-ensemble of 512 on the tables of a
-   1e5-star mock catalog;
+3. kernel 2 (tensor-Chebyshev tables, its contraction split over row
+   chunks) against its float64 plain version at 16384 walkers and at path
+   B's half-ensemble of 512 on the tables of a 1e5-star mock catalog; and
+   its batch invariance, as in phase 14;
 4. main path A, the omega Cen fixed-centre recipe (``example/``): 64 walkers x
    600 steps through kernel 1, goldens, profiles, and a bitwise resume;
 5. main path B, the tensor tier: 1e5-star mock, 1024 walkers x 200 steps
    through kernel 2, recovery of the truth;
 6. kernel 3 (free-centre walker x star likelihood, as kernel 1, with its
-   batch invariance), 7. kernel 4 (ConstantFit
-   + fixed background) and 8. kernel 5 (ConstantFitGB density mixture, split
-   over star chunks; also its batch invariance, as in phase 14) against
-   their float64 plain versions at 16384 walkers x 1e4 stars and at their
-   path's half-ensemble; 9. kernel 10 (SingleStars KDE) at 20480 targets x
-   8192 catalog stars and at a ragged catalog;
+   batch invariance), 7. kernel 4 (ConstantFit + fixed background) and 8.
+   kernel 5 (ConstantFitGB density mixture), both split over star chunks,
+   against their float64 plain versions at 16384 walkers x 1e4 stars and
+   at their path's half-ensemble, each with its batch invariance, as in
+   phase 14; 9. kernel 10 (SingleStars KDE) at 20480 targets x 8192
+   catalog stars and at a ragged catalog;
 10. main path C, the omega Cen free-centre ConstantFit recipe (generic tier,
     plain torch): 64 walkers x 600 steps, goldens;
 11. main path D, free-centre ModelFit on the omega Cen catalog through kernel
@@ -71,9 +72,10 @@ calls, and fails (non-zero exit) if any phase does:
 The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
 overflows the TPU kernels' forms; the port's kernels stay within the float64
-plain version's tolerance there.  ``--chunk-sweep`` also times kernels 1, 3
-and 7 at several star chunks (the kernel's chunk is an attribute of its
-launcher, so no rebuild is needed).
+plain version's tolerance there.  ``--chunk-sweep`` also times kernels 1, 3,
+4 and 7 at several star chunks (the kernel's chunk is an attribute of its
+launcher, so no rebuild is needed) and kernel 2 at several row chunks
+(``ops.model_tensor.ROW_CHUNK``).
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
@@ -293,14 +295,24 @@ def box_params(stats, n_walkers, seed, device, dtype):
     return torch.as_tensor(p, dtype=dtype, device=device)
 
 
+def tensor_inputs(stats, device):
+    """Kernel 2's walkers at a (walkers,) shape, as ``pair_kernel_phase``'s
+    inputs give them (``box_params``)."""
+    def make(shape):
+        return [box_params(stats, shape[0], seed=7, device=device,
+                           dtype=stats.table.dtype)], {}, {}, 0
+    return make
+
+
 def phase_tensor_kernel(device, fit, ensembles=(16384, 512)):
     """Kernel 2 at 16384 walkers and at path B's half-ensemble of 512,
-    against its float64 plain version; the tables against the exact star
-    sum."""
+    against its float64 plain version, and its batch invariance at 16384
+    walkers; the tables against the exact star sum."""
     import torch
 
     from mcmc_dynamics_tpu_torch.ops import (model_lnlike_reference,
                                              model_tensor_lnlike)
+    from mcmc_dynamics_tpu_torch.ops.model_tensor import tensor_chunks
 
     t0 = time.perf_counter()
     stats = fit.tensor_stats()
@@ -308,7 +320,7 @@ def phase_tensor_kernel(device, fit, ensembles=(16384, 512)):
     stats64 = stats.to(dtype=torch.float64)
     rows, probe = [], None
     for n_walkers in ensembles:
-        params = box_params(stats, n_walkers, seed=7, device=device, dtype=fit.dtype)
+        params = tensor_inputs(stats, device)((n_walkers,))[0][0]
         if probe is None:
             probe = params[:256].double()
         got = model_tensor_lnlike(stats, params)
@@ -334,16 +346,20 @@ def phase_tensor_kernel(device, fit, ensembles=(16384, 512)):
     exact = torch.cat([model_lnlike_reference(p, *cols) for p in torch.split(probe, 32)])
     tab_err = compare("tensor tables vs exact star sum", stats64.lnlike(probe),
                       exact, **TENSOR_TOL)
+    s_rows, n_chunks = tensor_chunks(stats.u_s.shape[1], stats.u_a.shape[1])
     for row in rows:
         print(f"phase 3 kernel model_tensor W={row['W']} N={fit.n_data} table "
               f"{tuple(stats.table.shape)} ranks {tuple(stats.u_s.shape)}x"
-              f"{tuple(stats.u_a.shape)} Dr {stats.n_r} (host build {build_s:.2f} s): "
+              f"{tuple(stats.u_a.shape)} Dr {stats.n_r}, {n_chunks} row chunks of "
+              f"{s_rows} s-ranks (host build {build_s:.2f} s): "
               f"max_abs_err {row['max_abs_err']:.4g} vs float64 plain (rtol "
               f"{TENSOR_TOL['rtol']}, atol {TENSOR_TOL['atol']}) | tables vs exact "
               f"star sum {tab_err:.4g} | kernel {row['ms']:.4f} ms | plain f32 "
               f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})")
-    return rows
+    batch_invariance(3, "model_tensor", lambda p: model_tensor_lnlike(stats, p),
+                     tensor_inputs(stats, device), (ensembles[0],))
+    return rows, stats
 
 
 def read_catalog(cfg):
@@ -535,8 +551,14 @@ def batch_invariance(phase, name, run, inputs, shape, n_alone=128):
         raise AssertionError(f"{name}: walkers 0-{n_alone - 1} of a {shape[0]}-walker "
                              "batch differ from the same walkers alone")
     print(f"phase {phase} kernel {name}: batch invariance ok (walkers 0-{n_alone - 1} of "
-          f"{shape[0]} x {shape[1] + shape[2]} alone bitwise equal; two calls bitwise "
-          f"equal)")
+          f"{size_label(shape)} alone bitwise equal; two calls bitwise equal)")
+
+
+def size_label(shape):
+    """"walkers x stars" of a (walkers, stars, masked tail) shape, or "W
+    walkers" of a table kernel's (walkers,)."""
+    return f"{shape[0]} x {shape[1] + shape[2]}" if len(shape) == 3 else \
+        f"{shape[0]} walkers"
 
 
 def _on(device, *arrays):
@@ -1331,26 +1353,30 @@ H_REFERENCE = dict(v_sys=-0.0038, sigma_max=11.96157, a=30.47835, v_maxx=4.2569,
                    v_maxy=4.31563, r_peak=59.76897)
 
 
-def chunk_sweep(kernel, name, run, inputs, shapes, chunks):
-    """Kernel ``name``'s time at each star chunk of ``chunks`` and each
-    (walkers, stars, tail) of ``shapes``.  The chunk is the launcher's
-    ``star_chunk`` attribute, set here for the sweep and restored after."""
+def chunk_sweep(kernel, name, run, inputs, shapes, chunks, attr="star_chunk",
+                count=None):
+    """Kernel ``name``'s time at each chunk of ``chunks`` and each shape of
+    ``shapes``.  The chunk is ``kernel``'s attribute ``attr`` (a launcher's
+    ``star_chunk``; kernel 2's is its module's ``ROW_CHUNK``), set here for
+    the sweep and restored after; ``count(shape)`` gives the chunks at that
+    setting (by default the star chunks of a (walkers, stars, tail)
+    shape)."""
     from mcmc_dynamics_tpu_torch.ops import star_chunks
 
-    own = kernel.star_chunk
+    count = count or (lambda shape: star_chunks(shape[1] + shape[2], getattr(kernel, attr)))
+    own = getattr(kernel, attr)
     try:
         for shape in shapes:
             a32, kw, _, _ = inputs(shape)
-            n = shape[1] + shape[2]
             readings = []
             for chunk in chunks:
-                kernel.star_chunk = chunk
+                setattr(kernel, attr, chunk)
                 ms = cuda_ms(lambda: run(*a32, **kw))
-                readings.append(f"{chunk}: {ms:.4f} ms ({star_chunks(n, chunk)} chunks)")
-            print(f"  chunk sweep {name} {shape[0]} x {n} (own chunk {own}): "
+                readings.append(f"{chunk}: {ms:.4f} ms ({count(shape)} chunks)")
+            print(f"  chunk sweep {name} {size_label(shape)} (own chunk {own}): "
                   + " | ".join(readings))
     finally:
-        kernel.star_chunk = own
+        setattr(kernel, attr, own)
 
 
 def profile_path(label, fn, n_steps, kernel_names):
@@ -1412,7 +1438,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mcmc_dynamics_tpu_torch.ops import (
-        DOUBLE_MODEL, KERNELS, MODEL_FREECENTER, MODEL_LNLIKE, background_logsumexp,
+        CONSTANT_MIXTURE, DOUBLE_MODEL, KERNELS, MODEL_FREECENTER, MODEL_LNLIKE,
+        background_logsumexp,
         background_logsumexp_reference,
         constant_gb_lnlike_batched, constant_gb_lnlike_reference,
         constant_gb_v2_lnlike_batched, constant_gb_v2_lnlike_reference,
@@ -1447,7 +1474,16 @@ def main(argv=None) -> int:
         direct_inputs(device), (big, path_shape), DIRECT_TOL, rows_k=6, cols_k=6)
     batch_invariance(2, "model_lnlike", model_lnlike_batched, direct_inputs(device), big)
     mock_b, truth = mock_fit(device, n_stars=100_000, seed=5)
-    tensor = phase_tensor_kernel(device, mock_b)
+    tensor, b_stats = phase_tensor_kernel(device, mock_b)
+    if "--chunk-sweep" in args:
+        from mcmc_dynamics_tpu_torch.ops import model_tensor, model_tensor_lnlike
+
+        ranks = b_stats.u_s.shape[1], b_stats.u_a.shape[1]
+        chunk_sweep(model_tensor, "model_tensor", lambda p: model_tensor_lnlike(b_stats, p),
+                    tensor_inputs(b_stats, device), ((512,), (16384,)),
+                    (12, 24, 48, 96, 132, 264), attr="ROW_CHUNK",
+                    count=lambda shape: model_tensor.tensor_chunks(*ranks)[1])
+    del b_stats
 
     recipe = drive("A", lambda: phase_recipe(device), {"model_lnlike"})
     print(f"phase 4 main path A (omega Cen recipe, direct tier): "
@@ -1486,6 +1522,12 @@ def main(argv=None) -> int:
         7, "constant_mixture", constant_mixture_split,
         constant_mixture_lnlike_reference, constant_inputs(device, gb=False),
         ((16384, 10_000, 240), (128, 20_480, 0)), DIRECT_TOL, rows_k=7, cols_k=4)
+    batch_invariance(7, "constant_mixture", constant_mixture_split,
+                     constant_inputs(device, gb=False), (16384, 10_000, 240))
+    if "--chunk-sweep" in args:
+        chunk_sweep(CONSTANT_MIXTURE, "constant_mixture", constant_mixture_split,
+                    constant_inputs(device, gb=False), (half, big),
+                    (512, 1024, 2048, 4096))
     gb = pair_kernel_phase(
         8, "constant_gb", constant_gb_lnlike_batched, constant_gb_lnlike_reference,
         constant_inputs(device, gb=True), ((16384, 10_000, 240), (128, 20_480, 0)),
@@ -1599,11 +1641,13 @@ def main(argv=None) -> int:
         fit_d, _ = freecenter_fit(device)
         for label, fit, n_walkers, names in (
                 ("A", fit_a, 64, ["model_lnlike_kernel", "sum_chunks_kernel<1>"]),
-                ("B", mock_b, 1024, ["model_tensor_kernel"]), ("C", fit_c, 64, []),
+                ("B", mock_b, 1024, ["model_tensor_kernel", "sum_chunks_kernel<2>"]),
+                ("C", fit_c, 64, []),
                 ("D", fit_d, 64, ["model_freecenter_kernel", "sum_chunks_kernel<3>"]),
                 ("E1", path_e1["fit"], 256,
                  ["constant_gb_kernel", "sum_chunks_kernel<5>"]),
-                ("E2", path_e2["fit"], 256, ["constant_mixture_kernel"]),
+                ("E2", path_e2["fit"], 256,
+                 ["constant_mixture_kernel", "sum_chunks_kernel<4>"]),
                 ("F1", radial["F1"]["fit"], 256,
                  ["model_mixture_kernel", "sum_chunks_kernel<6>"]),
                 ("F2", radial["F2"]["fit"], 256,

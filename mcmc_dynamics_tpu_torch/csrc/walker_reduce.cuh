@@ -1,4 +1,5 @@
-// Shared pieces of the walker x star reductions (kernels 1 and 3 to 8).
+// Shared pieces of the walker x star reductions (kernels 1 and 3 to 8), and
+// the fold and finishing pass of kernel 2's split contraction.
 //
 // Layout common to them: one block of kThreads threads per tile of TW
 // walkers, the tile's per-walker constants in registers (in shared memory for
@@ -11,7 +12,9 @@
 // The split form (split_reduce, kernels 1 and 3 to 8) also cuts the star axis
 // into chunks over blockIdx.y, so that a half-ensemble of 32 or 128 walkers
 // still fills the card: each block writes one partial sum per walker into a
-// (chunks, W) buffer, and sum_chunks_kernel adds them in chunk order.  The
+// (chunks, W) buffer, and sum_chunks_kernel adds them in chunk order (kernel
+// 2 cuts its table rows so, through launch_split and block_reduce_spread, and
+// sum_chunks_kernel<2> adds its chunks).  The
 // caller chooses the chunks (ops/lnlike_kernels.py: each kernel's own chunk
 // size, so their count is a function of the star count alone), and
 // the order of a walker's terms (per thread: its stars of the chunk at stride
@@ -46,8 +49,9 @@ __device__ __forceinline__ void block_reduce(const float (&vals)[NV],
   __syncthreads();
 }
 
-// block_reduce in fewer instructions (kernels 1 and 3), for TW a power of two
-// up to 32: the same warp sums, bit for bit.  Each walker's tree adds the same
+// block_reduce's warp sums in fewer instructions (kernels 1 to 4), for TW a
+// power of two up to 32, bit for bit, without the block's barrier: red[k][warp]
+// gets the warp's sum of the k-th value.  Each walker's tree adds the same
 // pairs of partial sums as block_reduce's shuffle-down tree (lane i and lane
 // i + off, off = 16, 8, ..., 1; the order of two operands does not change an
 // IEEE sum).  At each of the first log2(TW) levels a lane keeps half of its
@@ -55,8 +59,8 @@ __device__ __forceinline__ void block_reduce(const float (&vals)[NV],
 // other half with lane ^ off, so the level takes TW / 2^level shuffles, not
 // TW; afterwards lane l holds walker l / (32 / TW).
 template <int TW>
-__device__ __forceinline__ void block_reduce_spread(const float (&vals)[TW],
-                                                    float (*red)[kWarps]) {
+__device__ __forceinline__ void warp_reduce_spread(const float (&vals)[TW],
+                                                   float (*red)[kWarps]) {
   static_assert(TW >= 1 && TW <= 32 && (TW & (TW - 1)) == 0, "TW: a power of two");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -81,6 +85,14 @@ __device__ __forceinline__ void block_reduce_spread(const float (&vals)[TW],
   }
   constexpr int kLanes = 32 / TW;            // lanes that hold one walker's sum
   if (lane % kLanes == 0) red[lane / kLanes][warp] = v[0];
+}
+
+// block_reduce in fewer instructions: warp_reduce_spread, then the block's
+// barrier.
+template <int TW>
+__device__ __forceinline__ void block_reduce_spread(const float (&vals)[TW],
+                                                    float (*red)[kWarps]) {
+  warp_reduce_spread<TW>(vals, red);
   __syncthreads();
 }
 
@@ -119,7 +131,7 @@ __device__ __forceinline__ const T* tile_constants(int w0, int n_walkers, Set se
 // kThreads: the block takes walker tile blockIdx.x (walkers w0 .. w0 + TW)
 // and chunk c = blockIdx.y (stars c * star_chunk onwards), and writes the
 // tile's sum over the chunk to dst[c * n_walkers + w], folded by block_reduce
-// (by block_reduce_spread with ``kSpread``: kernels 1 and 3).  ``body`` holds
+// (by block_reduce_spread with ``kSpread``: kernels 1, 3 and 4).  ``body`` holds
 // the tile's per-walker constants and gives
 //
 //   typename Body::Star load(int i)    star row i
@@ -179,11 +191,13 @@ __global__ void sum_chunks_kernel(const float* __restrict__ partial, int n_chunk
   out[w] = s;
 }
 
-// Launch a split reduction over n_chunks chunks of star_chunk stars, which
-// must cover the n_stars: its main kernel through ``launch_main(grid, dst)``
-// and, with more than one chunk, its finishing pass.  With one chunk the
-// blocks write ``out`` directly (0 + x is x) and ``partial`` may be null;
-// else ``partial`` holds (n_chunks, n_walkers) floats.
+// Launch a split reduction over n_chunks chunks of star_chunk stars (kernel
+// 2: s-rank indices), which must cover the n_stars: its main kernel through
+// ``launch_main(grid, dst)`` (grid.y = n_chunks, one chunk a block; kernel 2's
+// wide tile takes them all in one block) and, with more than one chunk, its
+// finishing pass.  With one chunk the blocks write ``out`` directly (0 + x
+// is x) and ``partial`` may be null; else ``partial`` holds (n_chunks,
+// n_walkers) floats.
 template <int kKernel, int TW, class LaunchMain>
 cudaError_t launch_split(int n_walkers, int n_stars, int star_chunk, int n_chunks,
                          float* partial, float* out, cudaStream_t stream,

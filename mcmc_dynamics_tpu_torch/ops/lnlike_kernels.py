@@ -55,18 +55,19 @@ _LOG_2PI = math.log(2.0 * math.pi)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# kernels 1, 3 and 5 to 8 split the stars over blocks, each in chunks of its
+# kernels 1 and 3 to 8 split the stars over blocks, each in chunks of its
 # own ``star_chunk``: (..., n_stars, [scalars,] star_chunk, n_chunks,
 # partial, out), ``partial`` the (n_chunks, W) scratch.  Kernels 1, 3 and 7
 # take chunks of 512 so that the 32 walkers x ~6300 stars of paths A, D and
-# G1 fill the card (PERF.md: the sweeps).
+# G1 fill the card, kernel 4 of 1024 for its cheap pair at E2's 128 walkers
+# x 20480 stars (PERF.md: the sweeps).
 MODEL_LNLIKE = Kernel("model_lnlike_launch",
                       [_P, _I] + [_P] * 6 + [_I, _I, _I, _P, _P], star_chunk=512)
 MODEL_FREECENTER = Kernel("model_freecenter_launch",
                           [_P, _I] + [_P] * 8 + [_I, _F, _F, _I, _I, _P, _P],
                           star_chunk=512)
 CONSTANT_MIXTURE = Kernel("constant_mixture_launch",
-                          [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P])
+                          [_P, _I] + [_P] * 7 + [_I, _I, _I, _P, _P], star_chunk=1024)
 CONSTANT_GB = Kernel("constant_gb_launch",
                      [_P, _I] + [_P] * 7 + [_I, _I, _I, _P, _P], star_chunk=2048)
 MODEL_MIXTURE = Kernel("model_mixture_launch",
@@ -318,7 +319,7 @@ def _launch(kernel, name, params, n_cols, stars, extra=()):
     """Check a CUDA launch's arguments and run ``kernel``: params (W,
     n_cols) float32, star columns (N,) float32 on the same card, contiguous;
     ``extra`` are scalar arguments passed after the star count.  A split
-    kernel (one with a ``star_chunk``: kernels 1, 3 and 5 to 8) also gets
+    kernel (one with a ``star_chunk``: kernels 1 and 3 to 8) also gets
     its chunk size, the chunk count and the (star_chunks(N, chunk), W)
     scratch of the per-chunk sums before ``out``: null with a single chunk,
     which needs none."""

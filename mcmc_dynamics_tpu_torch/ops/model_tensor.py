@@ -28,7 +28,8 @@ import torch
 
 from ._build import Kernel
 
-__all__ = ["ModelTensorStats", "model_tensor_lnlike", "MODEL_TENSOR"]
+__all__ = ["ModelTensorStats", "model_tensor_lnlike", "MODEL_TENSOR",
+           "tensor_chunks"]
 
 logger = logging.getLogger(__name__)
 
@@ -286,15 +287,31 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 MODEL_TENSOR = Kernel("model_tensor_launch",
                       [_P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _F, _F, _P])
+                       _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P])
+# table rows a chunk of the split contraction holds, at least: the kernel
+# sums the rows in chunks of whole s-rank indices (``tensor_chunks``), so
+# that path B's 512 walkers fill the card (PERF.md: the sweep)
+ROW_CHUNK = 48
+
+
+def tensor_chunks(rs: int, ra: int) -> tuple[int, int]:
+    """(s-rank indices a chunk, chunks) of the kernel's split contraction
+    over a (rs*ra, C) table: chunks of ``ceil(ROW_CHUNK / ra)`` s-rank
+    indices (rows i*ra .. (i + 1)*ra each), the last one ragged.  A function
+    of the table's shape alone (never of the walker count), so a walker's
+    sum is added in the same order in every batch."""
+    s_rows = max(1, -(-ROW_CHUNK // ra))
+    return s_rows, -(-rs // s_rows)
 
 
 def model_tensor_lnlike(stats: ModelTensorStats, params):
     """Tensor-tier log-likelihood, params (W, 6) in internal units -> (W,).
 
     A CUDA tensor launches ``csrc/model_tensor.cu`` (float32 tables and
-    params on one card); a CPU tensor takes :meth:`ModelTensorStats.lnlike`.
-    The caller keeps the -inf guard outside the table box.
+    params on one card), with the (chunks, W) scratch of its split
+    contraction (``tensor_chunks``; none for one chunk); a CPU tensor takes
+    :meth:`ModelTensorStats.lnlike`.  The caller keeps the -inf guard outside
+    the table box.
     """
     if params.device.type == "cpu":
         return stats.lnlike(params)
@@ -320,13 +337,17 @@ def model_tensor_lnlike(stats: ModelTensorStats, params):
     out = torch.empty(w, dtype=torch.float32, device=params.device)
     if w == 0:
         return out
+    s_rows, chunks = tensor_chunks(rs, ra)
+    partial = (torch.empty((chunks, w), dtype=torch.float32, device=params.device)
+               if chunks > 1 else None)
     ts, ta, tr = stats.t_s, stats.t_a, stats.t_r
     MODEL_TENSOR(params.data_ptr(), w,
                  stats.u_s.data_ptr(), d_s, rs,
                  stats.u_a.data_ptr(), d_a, ra,
                  stats.table.data_ptr(), n_ch, stats.n_r,
                  ts[0], ts[1], ta[0], ta[1], tr[0], tr[1],
-                 stats.offset, stats.n_stars,
+                 stats.offset, stats.n_stars, s_rows, chunks,
+                 partial.data_ptr() if chunks > 1 else None,
                  out.data_ptr(),
                  stream=torch.cuda.current_stream(params.device).cuda_stream)
     return out

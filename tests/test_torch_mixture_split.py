@@ -1,4 +1,4 @@
-"""The split walker x star reduction of kernels 1, 3 and 5 to 8
+"""The split walker x star reduction of kernels 1 and 3 to 8
 (``walker_reduce.cuh``).
 
 A torch emulation of what the CUDA kernels compute, in their order: each
@@ -39,12 +39,12 @@ CSRC = pathlib.Path(ops.__file__).resolve().parents[1] / "csrc"
 LOG_2PI = math.log(2.0 * math.pi)
 THREADS, WARP = 256, 32
 FLOAT32_TINY = float(torch.finfo(torch.float32).tiny)
-KINDS = ["model_lnlike", "model_freecenter", "constant_gb", "model_mixture",
-         "model_mixture_lnb", "double_model", "double_model_gb"]
-SPLIT = ["model_lnlike", "model_freecenter", "constant_gb", "model_mixture",
-         "double_model", "double_model_gb"]
+KINDS = ["model_lnlike", "model_freecenter", "constant_mixture", "constant_gb",
+         "model_mixture", "model_mixture_lnb", "double_model", "double_model_gb"]
+SPLIT = ["model_lnlike", "model_freecenter", "constant_mixture", "constant_gb",
+         "model_mixture", "double_model", "double_model_gb"]
 # the kernels without a density mixture: no normaliser clamp (``tiny``)
-NO_TINY = {"model_lnlike", "model_freecenter", "double_model"}
+NO_TINY = {"model_lnlike", "model_freecenter", "constant_mixture", "double_model"}
 # kernel 3's reference centre (omega Cen) and the sine and cosine of its
 # declination
 RA0, DEC0 = math.radians(201.697), math.radians(-47.48)
@@ -107,6 +107,17 @@ def _mixture_term(ln_c, ln_b, ln_f, f_back, density, ln_density, tiny):
     b = ln_f + ln_b
     ln_s = torch.log(torch.clamp(density + f_back, min=tiny))
     return torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b))) - ln_s
+
+
+def _constant_mixture_terms(params, gx, gy, v, verr2, lgp, lgb):
+    """csrc/constant_mixture.cu's Tile::term for every (walker, star): the
+    member's log-density from its rsqrt, mixed with the precombined
+    background branch ``lgb`` as log(1 + exp(-|a - lgb|)) (the kernel's
+    __logf(1 + __expf(.)), not log1p)."""
+    p = params[:, :, None]
+    d = v - p[:, 0] - gx * p[:, 2] - gy * p[:, 3]
+    a = lgp + _log_gauss(d, torch.rsqrt(verr2 + p[:, 1] * p[:, 1]))
+    return torch.maximum(a, lgb) + torch.log(1.0 + torch.exp(-torch.abs(a - lgb)))
 
 
 def _constant_gb_terms(params, gx, gy, v, verr2, density, ln_density, tiny):
@@ -203,6 +214,8 @@ def emulate(kind, params, cols, tiny):
         terms = _member_ln_c(params[:, :, None], *rows)
     elif kind == "model_freecenter":
         terms = _model_freecenter_terms(params, *rows)
+    elif kind == "constant_mixture":
+        terms = _constant_mixture_terms(params, *rows)
     elif kind == "constant_gb":
         terms = _constant_gb_terms(params, *rows, tiny)
     elif kind == "double_model":
@@ -247,6 +260,20 @@ def _inputs(kind, n_walkers=11, n_stars=2 * 2048 + 333, n_masked=61, seed=13):
     w = n_walkers
     background = [rng.normal(40, 5, w), rng.uniform(30, 70, w),
                   10.0 ** rng.uniform(-1, 1, w)]
+    if kind == "constant_mixture":
+        # kernel 4's rows: membership logs and a Gaussian field's lnL,
+        # lgb = log(1 - p) + lnb precombined (zero padding in the tail)
+        phi, pm = np.zeros(n), np.full(n, 0.5)
+        phi[:n_stars] = rng.uniform(-math.pi, math.pi, n_stars)
+        pm[:n_stars] = rng.uniform(0.05, 0.95, n_stars)
+        lnb = -0.5 * (np.log(2 * math.pi * (verr2 + 2500.0))
+                      + (v - 40.0) ** 2 / (verr2 + 2500.0))
+        params = np.column_stack([rng.uniform(-5, 5, w), rng.uniform(5, 30, w),
+                                  rng.uniform(-10, 10, w), rng.uniform(-10, 10, w)])
+        params[0, 1] = 0.0
+        rows = [np.cos(phi) * mask, np.sin(phi) * mask, v, verr2, np.log(pm) * mask,
+                (np.log1p(-pm) + lnb) * mask]
+        return params, rows + [mask]
     if kind == "constant_gb":
         phi = np.zeros(n)
         phi[:n_stars] = rng.uniform(-math.pi, math.pi, n_stars)
@@ -316,8 +343,18 @@ def _plain(kind, params, cols, **kw):
     return _function(ops, kind, "reference")(params, *cols, **kw)
 
 
+def _background_split(cols):
+    """Kernel 4's rows with the background branch as the wrappers take it:
+    ``lg1mp = 0`` and ``lnb = lgb``, so that their ``lg1mp + lnb`` is lgb
+    exactly."""
+    *rows, lgb, mask = cols
+    return rows + [lgb * 0.0, lgb, mask]
+
+
 def _batched(kind, params, cols):
     """The wrapper of kernel ``kind``."""
+    if kind == "constant_mixture":
+        return ops.constant_mixture_lnlike_batched(params, *_background_split(cols))
     if kind.startswith("model_mixture"):
         return model_mixture_lnlike_batched(params, *cols,
                                             parametric_bg=kind == "model_mixture")
@@ -354,9 +391,10 @@ def test_emulation_matches_pallas_interpret(kind):
     p_np, c_np = _inputs(kind, seed=29)
     kw = (dict(parametric_bg=kind == "model_mixture") if kind.startswith("model_mixture")
           else dict(s0=S0, c0=C0) if kind == "model_freecenter" else {})
+    jax_cols = _background_split(c_np) if kind == "constant_mixture" else c_np
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(_function(jax_ops, kind, "batched")(
-            *(jnp.asarray(a) for a in [p_np] + c_np), **kw, walker_tile=8,
+            *(jnp.asarray(a) for a in [p_np] + jax_cols), **kw, walker_tile=8,
             star_chunk=512))
     params, *cols = _t(p_np, *c_np)
     got = emulate(kind, params, cols, tiny=torch.finfo(torch.float64).tiny)
@@ -451,13 +489,15 @@ def test_boundary_walkers_differ_from_the_clamped_form():
 
 
 def test_split_kernels_have_their_own_chunk():
-    """Kernels 1, 3 and 5 to 8 split the stars, each in chunks of its own
-    size (the others take none): 2048 for kernels 5, 6 and 8, smaller ones
-    for the 32 walkers of paths A, D and G1 (kernels 1, 3 and 7)."""
+    """Kernels 1 and 3 to 8 split the stars, each in chunks of its own size
+    (the others take none): 2048 for kernels 5, 6 and 8, smaller ones for
+    the 32 walkers of paths A, D and G1 (kernels 1, 3 and 7) and for kernel
+    4's cheaper pair at E2's 128 walkers."""
     chunks = {name: kernel.star_chunk for name, kernel in ops.KERNELS.items()
               if kernel.star_chunk is not None}
     assert chunks == {"model_lnlike": 512, "model_freecenter": 512,
-                      "constant_gb": 2048, "model_mixture": 2048, "double_model": 512,
+                      "constant_mixture": 1024, "constant_gb": 2048,
+                      "model_mixture": 2048, "double_model": 512,
                       "double_model_gb": 2048}
 
 
@@ -537,7 +577,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", KINDS)
 def test_split_kernels_on_card(kind, cuda_device):
-    """Kernels 1, 3 and 5 to 8 (float32) against their float64 plain
+    """Kernels 1 and 3 to 8 (float32) against their float64 plain
     versions at the direct kernels' gate (rtol 2e-4, atol 5e-2), and batch
     invariance: the first 40 walkers of a 2048-walker batch (the wide
     tiles) evaluated alone (2-walker tiles) give the same bits, as do two
