@@ -5,7 +5,7 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py              # every phase (what the check runs)
     python3 chip_smoke.py --profile    # also trace each main path with torch.profiler
-    python3 chip_smoke.py --chunk-sweep    # also time kernels 1-4, 7 at several chunks
+    python3 chip_smoke.py --chunk-sweep    # also time kernels 1-4, 7, 9 at several chunks
 
 It builds the port's CUDA kernels from ``mcmc_dynamics_tpu_torch/csrc``,
 checks each against its plain torch version at the shapes the main paths give
@@ -32,7 +32,8 @@ calls, and fails (non-zero exit) if any phase does:
    against their float64 plain versions at 16384 walkers x 1e4 stars and
    at their path's half-ensemble, each with its batch invariance, as in
    phase 14; 9. kernel 10 (SingleStars KDE) at 20480 targets x 8192
-   catalog stars and at a ragged catalog;
+   catalog stars and at a ragged catalog, with targets past the catalog's
+   edge (every exponent below -104), and the same bits in two calls;
 10. main path C, the omega Cen free-centre ConstantFit recipe (generic tier,
     plain torch): 64 walkers x 600 steps, goldens;
 11. main path D, free-centre ModelFit on the omega Cen catalog through kernel
@@ -56,7 +57,8 @@ calls, and fails (non-zero exit) if any phase does:
 21. main path G2, DoubleModelFitGB on path F's catalog through kernel 8;
 22. kernel 9 (the binned table tier) on path H's float32 tables at 16384
     walkers and at the path's half-ensemble of 512, against its float64 plain
-    version, and the tables against the exact star sum;
+    version, and the tables against the exact star sum; and its batch
+    invariance, as in phase 14;
 23. kernel 11 (the same function on the tensor cores, 3xTF32) at phase 22's
     inputs, and on ``bench.py --validate``'s set-up at its matrix-unit gate;
 24. kernel 12 and 25. kernel 13 (the restructured density mixtures) against
@@ -74,8 +76,11 @@ The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 overflows the TPU kernels' forms; the port's kernels stay within the float64
 plain version's tolerance there.  ``--chunk-sweep`` also times kernels 1, 3,
 4 and 7 at several star chunks (the kernel's chunk is an attribute of its
-launcher, so no rebuild is needed) and kernel 2 at several row chunks
-(``ops.model_tensor.ROW_CHUNK``).
+launcher, so no rebuild is needed), kernel 2 at several row chunks
+(``ops.model_tensor.ROW_CHUNK``) and kernel 9 at several bin groups
+(``ops.model_sufficient.BIN_GROUP``).  Choices compiled into a source
+(kernel 9's walkers a lane, kernel 10's lanes a target) are timed by
+``kernel_variants.py``.
 
 Each phase prints one line of numbers.  Before the last line come the card's
 name and power limit (``nvidia-smi``) and one JSON object with every kernel's
@@ -677,6 +682,44 @@ def background_inputs(device):
     return make
 
 
+def kde_far_and_repeat(device, shape=(20_480, 8192, 0), n_far=64):
+    """Phase 9's further checks of kernel 10 on ``background_inputs``: the
+    first ``n_far`` targets moved 15-30.5 km/s past the catalog's edges with
+    1 km/s errors, where every exponent is below -104 (a float32 sum of exp
+    without the max shift underflows to 0 there, its log to -inf), against
+    the float64 plain version; and two calls give the same bits."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import (background_logsumexp,
+                                             background_logsumexp_reference)
+
+    (catalog, v, verr), _, _, _ = background_inputs(device)(shape)
+    step = torch.arange(n_far // 2, dtype=torch.float32, device=device) * 0.5
+    v = v.clone()
+    v[:n_far] = torch.cat([catalog.max() + 15.0 + step, catalog.min() - 15.0 - step])
+    verr = verr.clone()
+    verr[:n_far] = 1.0
+    expo = -(catalog[None, :] - v[:n_far, None]) ** 2 / (2.0 * verr[:n_far, None] ** 2)
+    if float(expo.max()) >= -104.0:
+        raise AssertionError(f"far targets: largest exponent {float(expo.max())}")
+    unshifted = torch.log(torch.exp(expo).sum(dim=1))
+    if not torch.isneginf(unshifted).all():
+        raise AssertionError("far targets: float32 sum without the shift is finite")
+    got, again = background_logsumexp(catalog, v, verr), background_logsumexp(catalog, v, verr)
+    torch.cuda.synchronize()
+    ref = background_logsumexp_reference(catalog.double(), v.double(), verr.double())
+    err = compare("background_lse with far targets", got, ref, **BACKGROUND_TOL)
+    far_err = float((got[:n_far].double() - ref[:n_far]).abs().max())
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("background_lse: two calls on the same inputs differ")
+    print(f"phase 9 kernel background_lse {size_label(shape)} with {n_far} far targets "
+          f"(largest exponent {float(expo.max()):.1f}; float32 without the shift: -inf): "
+          f"max_abs_err {err:.4g} ({far_err:.4g} on the far targets, lnL "
+          f"{float(ref[:n_far].min()):.1f} to {float(ref[:n_far].max()):.1f}) vs float64 "
+          f"plain (rtol {BACKGROUND_TOL['rtol']}, atol {BACKGROUND_TOL['atol']}) | two "
+          f"calls bitwise equal")
+
+
 def medians(chain, names, n_burn):
     flat = chain[:, n_burn:, :].reshape(-1, chain.shape[-1])
     return dict(zip(names, (float(x) for x in np.median(flat, axis=0))))
@@ -1179,10 +1222,19 @@ def table_kernel_row(label, kernel, stats, params, tol, mma):
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, out=got)
 
 
+def sufficient_inputs(device):
+    """Kernel 9's walkers at a (walkers,) shape (``near_truth_params``), as
+    ``pair_kernel_phase``'s inputs give them."""
+    def make(shape):
+        return [near_truth_params(shape[0], seed=shape[0], device=device)], {}, {}, 0
+    return make
+
+
 def phase_sufficient_kernel(device, fit, ensembles=(16384, 512)):
     """Phase 22: kernel 9 on path H's float32 tables at 16384 walkers and at
     the path's half-ensemble, against the float64 plain version (the tier's
-    gate), and the tables against the exact float64 star sum."""
+    gate), and the tables against the exact float64 star sum; its batch
+    invariance at 16384 walkers against walkers 0-127 alone."""
     import torch
 
     from mcmc_dynamics_tpu_torch.ops import (model_lnlike_reference,
@@ -1194,7 +1246,7 @@ def phase_sufficient_kernel(device, fit, ensembles=(16384, 512)):
     n_bins, n_coef, _ = stats.coeffs.shape
     rows = []
     for n_walkers in ensembles:
-        params = near_truth_params(n_walkers, seed=n_walkers, device=device)
+        params = sufficient_inputs(device)((n_walkers,))[0][0]
         row = table_kernel_row(f"model_sufficient W={n_walkers}", model_sufficient_lnlike,
                                stats, params, TENSOR_TOL, mma=False)
         row["params"] = params
@@ -1217,6 +1269,8 @@ def phase_sufficient_kernel(device, fit, ensembles=(16384, 512)):
               f"vs exact star sum {tab_err:.4g} | kernel {row['ms']:.4f} ms | plain "
               f"f32 {row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})")
+    batch_invariance(22, "model_sufficient", lambda p: model_sufficient_lnlike(stats, p),
+                     sufficient_inputs(device), (ensembles[0],))
     return stats, rows
 
 
@@ -1354,13 +1408,13 @@ H_REFERENCE = dict(v_sys=-0.0038, sigma_max=11.96157, a=30.47835, v_maxx=4.2569,
 
 
 def chunk_sweep(kernel, name, run, inputs, shapes, chunks, attr="star_chunk",
-                count=None):
+                count=None, unit="chunks"):
     """Kernel ``name``'s time at each chunk of ``chunks`` and each shape of
     ``shapes``.  The chunk is ``kernel``'s attribute ``attr`` (a launcher's
-    ``star_chunk``; kernel 2's is its module's ``ROW_CHUNK``), set here for
-    the sweep and restored after; ``count(shape)`` gives the chunks at that
-    setting (by default the star chunks of a (walkers, stars, tail)
-    shape)."""
+    ``star_chunk``; kernel 2's is its module's ``ROW_CHUNK``, kernel 9's
+    ``BIN_GROUP``), set here for the sweep and restored after;
+    ``count(shape)`` gives the ``unit``s at that setting (by default the star
+    chunks of a (walkers, stars, tail) shape)."""
     from mcmc_dynamics_tpu_torch.ops import star_chunks
 
     count = count or (lambda shape: star_chunks(shape[1] + shape[2], getattr(kernel, attr)))
@@ -1372,8 +1426,8 @@ def chunk_sweep(kernel, name, run, inputs, shapes, chunks, attr="star_chunk",
             for chunk in chunks:
                 setattr(kernel, attr, chunk)
                 ms = cuda_ms(lambda: run(*a32, **kw))
-                readings.append(f"{chunk}: {ms:.4f} ms ({count(shape)} chunks)")
-            print(f"  chunk sweep {name} {size_label(shape)} (own chunk {own}): "
+                readings.append(f"{chunk}: {ms:.4f} ms ({count(shape)} {unit})")
+            print(f"  chunk sweep {name} {size_label(shape)} (own {attr} {own}): "
                   + " | ".join(readings))
     finally:
         setattr(kernel, attr, own)
@@ -1538,6 +1592,7 @@ def main(argv=None) -> int:
         9, "background_lse", background_logsumexp, background_logsumexp_reference,
         background_inputs(device), ((20_480, 8192, 0), (20_480, 3001, 0)),
         BACKGROUND_TOL, rows_k=1, cols_k=2, split=False)
+    kde_far_and_repeat(device)
 
     def path_line(phase, label, out, extra=""):
         print(f"phase {phase} main path {label}: {out['stars']} stars, "
@@ -1615,6 +1670,15 @@ def main(argv=None) -> int:
 
     mock_h, truth_h = mock_fit(device, n_stars=100_000, seed=5, bounded=False)
     h_stats, sufficient = phase_sufficient_kernel(device, mock_h)
+    if "--chunk-sweep" in args:
+        from mcmc_dynamics_tpu_torch.ops import model_sufficient, model_sufficient_lnlike
+
+        n_bins = h_stats.coeffs.shape[0]
+        chunk_sweep(model_sufficient, "model_sufficient",
+                    lambda p: model_sufficient_lnlike(h_stats, p),
+                    sufficient_inputs(device), ((512,), (16384,)), (2, 4, 8),
+                    attr="BIN_GROUP", unit="groups",
+                    count=lambda shape: model_sufficient.sufficient_groups(n_bins)[1])
     sufficient_mma = phase_sufficient_mma(device, h_stats, sufficient)
     del h_stats
     gb_v2 = phase_v2(24, "constant_gb_v2", constant_gb_v2_lnlike_batched,

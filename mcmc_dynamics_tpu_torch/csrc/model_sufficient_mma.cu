@@ -193,8 +193,11 @@ model_sufficient_mma_kernel(const float* __restrict__ params, int n_walkers,
 
 }  // namespace
 
-// C interface for ctypes, as model_sufficient_launch (model_sufficient.cu).
-// Returns the cudaError_t of the launches (0 on success).
+// C interface for ctypes.  float32 device pointers: params row-major
+// (n_walkers, 6), coeffs (n_bins, n_coef, 61), u_bins (n_bins,), partial
+// scratch (ceil(n_bins / bins_per_block), n_walkers), out (n_walkers,);
+// ``stream`` is a cudaStream_t.  Returns the cudaError_t of the launches (0
+// on success).
 extern "C" int model_sufficient_mma_launch(const float* params, int n_walkers,
                                            const float* coeffs, const float* u_bins,
                                            int n_bins, int n_coef, int bins_per_block,

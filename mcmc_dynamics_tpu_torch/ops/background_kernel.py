@@ -9,9 +9,10 @@ single_stars.py:72-77):
 
 — an (N x M) pairwise kernel, the one quadratic cost in the framework.  The
 CUDA kernel (``csrc/background_lse.cu``) streams the catalog through shared
-memory with an online (running-max, rescaled-sum) reduction, so the (N x M)
-matrix never exists; :func:`background_logsumexp_reference` builds it in
-slices of targets.
+memory with an online reduction (the max once a chunk, one rescale of the
+running sum, then the chunk's sum of exp), so the (N x M) matrix never
+exists; :func:`background_logsumexp_reference` builds it in slices of
+targets.
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ import torch
 from ._build import Kernel
 
 __all__ = ["ModelSufficientStats", "N_CHANNELS", "model_sufficient_lnlike",
-           "model_sufficient_lnlike_mma", "MODEL_SUFFICIENT", "MODEL_SUFFICIENT_MMA"]
+           "model_sufficient_lnlike_mma", "sufficient_groups", "MODEL_SUFFICIENT",
+           "MODEL_SUFFICIENT_MMA"]
 
 logger = logging.getLogger(__name__)
 
@@ -70,6 +71,7 @@ class ModelSufficientStats(NamedTuple):
     """Chebyshev tables of the 61 per-bin moment channels over t = log(S + off)."""
 
     coeffs: torch.Tensor    # (B, D, 61)
+    coeffs_pad: torch.Tensor  # (B, D, 64): coeffs, channels zero-padded (kernel 9's)
     u_bins: torch.Tensor    # (B,) expansion points u_b
     t_lo: float             # log(off)
     t_hi: float             # log(s_max + off)
@@ -164,13 +166,15 @@ class ModelSufficientStats(NamedTuple):
         coeffs = np.swapaxes(_chebyshev_fit(samples, xi), 0, 1)  # (B, D, 61)
         dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                         device=device)
-        return cls(coeffs=dev(coeffs), u_bins=dev(u_bins), t_lo=float(t_lo),
-                   t_hi=float(t_hi), offset=float(off), n_stars=float(np.sum(m)),
-                   s_max=float(s_max))
+        coeffs = dev(coeffs)
+        return cls(coeffs=coeffs, coeffs_pad=_pad_channels(coeffs), u_bins=dev(u_bins),
+                   t_lo=float(t_lo), t_hi=float(t_hi), offset=float(off),
+                   n_stars=float(np.sum(m)), s_max=float(s_max))
 
     def to(self, device=None, dtype: Optional[torch.dtype] = None):
         """Same tables on another device or in another dtype."""
-        return self._replace(coeffs=self.coeffs.to(device=device, dtype=dtype),
+        coeffs = self.coeffs.to(device=device, dtype=dtype)
+        return self._replace(coeffs=coeffs, coeffs_pad=_pad_channels(coeffs),
                              u_bins=self.u_bins.to(device=device, dtype=dtype))
 
     # ------------------------------------------------------------------ evaluation
@@ -258,45 +262,71 @@ def _combine_channels(mom, a1, a2, c0, c1, c2, v_sys, vx, vy):
 
 
 # ------------------------------------------------------------------- CUDA kernels
+# kernel 9's table rows: the channels zero-padded to this many (the source's
+# kChannelsPad), a whole number of 16-byte pieces
+CHANNELS_PAD = 64
+
+
+def _pad_channels(coeffs):
+    """(B, D, 61) -> (B, D, CHANNELS_PAD), the channels zero-padded: kernel 9
+    copies a bin's (D, CHANNELS_PAD) slab into shared memory in 16-byte
+    pieces."""
+    pad = (0, CHANNELS_PAD - coeffs.shape[-1])
+    return torch.nn.functional.pad(coeffs, pad).contiguous()
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# (params, W, coeffs, u_bins, B, D, bins per block, t_lo, t_hi, offset,
-#  n_stars, partial, out)
+# (params, W, table, u_bins, B, D, bins per block, t_lo, t_hi, offset,
+#  n_stars, partial, out): kernel 9's table is coeffs_pad, kernel 11's coeffs
 _ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P]
 MODEL_SUFFICIENT = Kernel("model_sufficient_launch", _ARGTYPES)
 MODEL_SUFFICIENT_MMA = Kernel("model_sufficient_mma_launch", _ARGTYPES)
 # bins per block: each block writes one partial sum per walker over its
-# group of bins, which a second pass adds in bin order.  Kernel 9's 4 give
-# a 512-walker half-ensemble 192 blocks; kernel 11 amortises its staging of
-# the walker tile's basis over 8
-_BINS_PER_BLOCK = {MODEL_SUFFICIENT.symbol: 4, MODEL_SUFFICIENT_MMA.symbol: 8}
+# group of bins, which a second pass adds in group order.  Kernel 9's block
+# is one warp a bin: 4 give a 512-walker half-ensemble 8 x 24 blocks of 4
+# warps; kernel 11 amortises its staging of the walker tile's basis over 8
+BIN_GROUP = 4
+_MMA_BIN_GROUP = 8
 
 
-def _launch(kernel, name, stats: ModelSufficientStats, params):
+def sufficient_groups(n_bins: int):
+    """(bins a block, groups) of kernel 9 over ``n_bins`` bins: a function of
+    the table alone, never of the batch, so a walker's order of sums is the
+    same in any batch."""
+    return BIN_GROUP, -(-n_bins // BIN_GROUP)
+
+
+def _launch(kernel, name, stats: ModelSufficientStats, params, table, per_block):
+    """Launch ``kernel`` on ``stats.<table>`` with ``per_block`` bins a block."""
     if params.device.type != "cuda":
         raise TypeError(f"{name}: unsupported device {params.device}")
     if params.dim() != 2 or params.shape[1] != 6:
         raise ValueError(f"{name}: params must be (W, 6), got {tuple(params.shape)}")
-    for label, t in (("coeffs", stats.coeffs), ("u_bins", stats.u_bins)):
+    for label in (table, "u_bins"):
+        t = getattr(stats, label)
         if t.device != params.device or t.dtype != torch.float32 \
                 or not t.is_contiguous():
             raise TypeError(f"{name}: stats.{label}: expected contiguous float32 on "
                             f"{params.device}, got {t.dtype} on {t.device}")
     n_bins, n_coef, n_ch = stats.coeffs.shape
-    if n_ch != N_CHANNELS or stats.u_bins.shape != (n_bins,) or n_coef < 2:
-        raise ValueError(f"{name}: table shape {tuple(stats.coeffs.shape)} and "
-                         f"u_bins {tuple(stats.u_bins.shape)} do not match")
+    if n_ch != N_CHANNELS or stats.u_bins.shape != (n_bins,) or n_coef < 2 \
+            or stats.coeffs_pad.shape != (n_bins, n_coef, CHANNELS_PAD):
+        raise ValueError(f"{name}: table shape {tuple(stats.coeffs.shape)}, padded "
+                         f"{tuple(stats.coeffs_pad.shape)} and u_bins "
+                         f"{tuple(stats.u_bins.shape)} do not match")
+    if stats.coeffs_pad.data_ptr() % 16:
+        raise ValueError(f"{name}: stats.coeffs_pad must be 16-byte aligned")
     # float32 inside whatever the working dtype, as the TPU kernel
     p32 = params.to(torch.float32).contiguous()
     w = p32.shape[0]
     out = torch.empty(w, dtype=torch.float32, device=params.device)
     if w == 0:
         return out.to(params.dtype)
-    per_block = _BINS_PER_BLOCK[kernel.symbol]
     partial = torch.empty((-(-n_bins // per_block), w), dtype=torch.float32,
                           device=params.device)
-    kernel(p32.data_ptr(), w, stats.coeffs.data_ptr(), stats.u_bins.data_ptr(),
+    kernel(p32.data_ptr(), w, getattr(stats, table).data_ptr(), stats.u_bins.data_ptr(),
            n_bins, n_coef, per_block, stats.t_lo, stats.t_hi, stats.offset,
            stats.n_stars, partial.data_ptr(), out.data_ptr(),
            stream=torch.cuda.current_stream(params.device).cuda_stream)
@@ -312,7 +342,8 @@ def model_sufficient_lnlike(stats: ModelSufficientStats, params):
     """
     if params.device.type == "cpu":
         return stats.lnlike(params)
-    return _launch(MODEL_SUFFICIENT, "model_sufficient_lnlike", stats, params)
+    return _launch(MODEL_SUFFICIENT, "model_sufficient_lnlike", stats, params,
+                   "coeffs_pad", sufficient_groups(stats.coeffs.shape[0])[0])
 
 
 def model_sufficient_lnlike_mma(stats: ModelSufficientStats, params):
@@ -322,4 +353,5 @@ def model_sufficient_lnlike_mma(stats: ModelSufficientStats, params):
     dispatches it."""
     if params.device.type == "cpu":
         return stats.lnlike(params)
-    return _launch(MODEL_SUFFICIENT_MMA, "model_sufficient_lnlike_mma", stats, params)
+    return _launch(MODEL_SUFFICIENT_MMA, "model_sufficient_lnlike_mma", stats, params,
+                   "coeffs", _MMA_BIN_GROUP)
