@@ -5,7 +5,7 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py              # every phase (what the check runs)
     python3 chip_smoke.py --profile    # also trace each main path with torch.profiler
-    python3 chip_smoke.py --chunk-sweep    # also time kernels 1-4, 7, 9 at several chunks
+    python3 chip_smoke.py --chunk-sweep    # also time kernels 1-4, 7, 9, 12, 13 per chunk
 
 It builds the port's CUDA kernels from ``mcmc_dynamics_tpu_torch/csrc``,
 checks each against its plain torch version at the shapes the main paths give
@@ -61,9 +61,10 @@ calls, and fails (non-zero exit) if any phase does:
     invariance, as in phase 14;
 23. kernel 11 (the same function on the tensor cores, 3xTF32) at phase 22's
     inputs, and on ``bench.py --validate``'s set-up at its matrix-unit gate;
-24. kernel 12 and 25. kernel 13 (the restructured density mixtures) against
-    their float64 plain versions at 16384 walkers x 1e4 stars and at 128 x
-    20480, beside kernels 5 and 6 on the same inputs;
+24. kernel 12 and 25. kernel 13 (the restructured density mixtures, split
+    over star chunks) against their float64 plain versions at 16384 walkers
+    x 1e4 stars and at 128 x 20480, beside kernels 5 and 6 on the same
+    inputs, each with its batch invariance, as in phase 14;
 26. main path H, the binned tier: path B's 1e5-star mock with the default
     unbounded a and r_peak priors, 1024 walkers x 200 steps through kernel 9,
     recovery of the truth;
@@ -75,8 +76,8 @@ The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
 overflows the TPU kernels' forms; the port's kernels stay within the float64
 plain version's tolerance there.  ``--chunk-sweep`` also times kernels 1, 3,
-4 and 7 at several star chunks (the kernel's chunk is an attribute of its
-launcher, so no rebuild is needed), kernel 2 at several row chunks
+4, 7, 12 and 13 at several star chunks (the kernel's chunk is an attribute
+of its launcher, so no rebuild is needed), kernel 2 at several row chunks
 (``ops.model_tensor.ROW_CHUNK``) and kernel 9 at several bin groups
 (``ops.model_sufficient.BIN_GROUP``).  Choices compiled into a source
 (kernel 9's walkers a lane, kernel 10's lanes a target) are timed by
@@ -140,8 +141,13 @@ PAIR_COST = {"model_lnlike": (18, 3), "model_freecenter": (36, 3),
              "background_lse": (10, 1),
              # kernels 12 and 13: three logs/exps a pair, a quarter log for
              # the product of four nb and a half for the two products of
-             # D + f, plus the reciprocals (two; three and an rsqrt for 13)
-             "constant_gb_v2": (47, 5.75), "model_gb_v2": (60, 7.75)}
+             # D + f, and one reciprocal, of n nb (13: of q^2 n nb, beside
+             # the Plummer rsqrt), which all of the pair's divisions share:
+             # the least the function needs, and what both kernels' SASS
+             # issues (sass_pair_counts.py); the flops counted from the
+             # source as written, each MUFU function's scaling multiply
+             # included
+             "constant_gb_v2": (34.25, 4.75), "model_gb_v2": (44.25, 5.75)}
 # r_peak of the walkers that each walker x star phase adds: float32 overflows
 # the TPU kernels' q^2 from ~1.8e19 and their double models' 2 r_peak v_max
 # near 1e37
@@ -1376,14 +1382,16 @@ def model_mixture_gb(params, dxm, dym, r2, v, verr2, density, ln_density, mask):
 
 def phase_v2(phase, name, v2, plain, v1, inputs, shapes, rows_k, cols_k):
     """Phases 24 and 25: kernel 12 or 13 against its float64 plain version
-    (``pair_kernel_phase``), then beside the kernel it restructures (5 or 6)
-    on the same inputs: the largest difference relative to max(|lnL|, 1) over
-    the walkers with f_back > 0 (at f_back = 0 the two forms clamp
-    differently), and the two kernels' times, timed in turns."""
+    (``pair_kernel_phase``) and its batch invariance at the first shape,
+    then beside the kernel it restructures (5 or 6) on the same inputs: the
+    largest difference relative to max(|lnL|, 1) over the walkers with
+    f_back > 0 (at f_back = 0 the two forms clamp differently), and the two
+    kernels' times, timed in turns."""
     import torch
 
     rows = pair_kernel_phase(phase, name, v2, plain, inputs, shapes, DIRECT_TOL,
                              rows_k=rows_k, cols_k=cols_k)
+    batch_invariance(phase, name, v2, inputs, shapes[0])
     for shape, row in zip(shapes, rows):
         a32 = inputs(shape)[0]
         got, ref = v2(*a32).double(), v1(*a32).double()
@@ -1492,7 +1500,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mcmc_dynamics_tpu_torch.ops import (
-        CONSTANT_MIXTURE, DOUBLE_MODEL, KERNELS, MODEL_FREECENTER, MODEL_LNLIKE,
+        CONSTANT_GB_V2, CONSTANT_MIXTURE, DOUBLE_MODEL, KERNELS, MODEL_FREECENTER,
+        MODEL_GB_V2, MODEL_LNLIKE,
         background_logsumexp,
         background_logsumexp_reference,
         constant_gb_lnlike_batched, constant_gb_lnlike_reference,
@@ -1687,6 +1696,13 @@ def main(argv=None) -> int:
     model_v2 = phase_v2(25, "model_gb_v2", model_gb_v2_lnlike_batched,
                         model_gb_v2_lnlike_reference, model_mixture_gb,
                         model_gb_v2_inputs(device), (big, half), rows_k=8, cols_k=9)
+    if "--chunk-sweep" in args:
+        for kernel, name, run, inputs in (
+                (CONSTANT_GB_V2, "constant_gb_v2", constant_gb_v2_lnlike_batched,
+                 constant_inputs(device, gb=True)),
+                (MODEL_GB_V2, "model_gb_v2", model_gb_v2_lnlike_batched,
+                 model_gb_v2_inputs(device))):
+            chunk_sweep(kernel, name, run, inputs, (half, big), (1024, 2048, 4096))
     path_h = drive("H", lambda: phase_table_path(device, mock_h, truth_h, "sufficient"),
                    {"model_sufficient"})
     print(f"phase 26 main path H (binned tier, default unbounded a/r_peak priors): "

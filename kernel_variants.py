@@ -7,13 +7,14 @@ one NVIDIA GPU:
     python3 kernel_variants.py                    # every kernel of VARIANTS
     python3 kernel_variants.py constant_mixture   # one of them
     python3 kernel_variants.py model_sufficient background_lse
+    python3 kernel_variants.py constant_gb_v2 model_gb_v2
 
-A variant is a kernel's ``csrc/`` source with some of its text replaced
-(``VARIANTS`` below: the other way of a choice the source makes).  Each is
-compiled by its own nvcc, with the build's flags, into a library of its
-own; for its timings its launcher takes the place of the built one in the
-kernel's ``Kernel``, so the wrapper, its checks and its scratch are the
-source's.  For each kernel, shape and variant it prints the max_abs_err of
+A variant is a kernel's ``csrc/`` source (or a header it includes) with
+some of its text replaced (``VARIANTS`` below: the other way of a choice the
+source makes).  Each is compiled by its own nvcc, with the build's flags,
+into a library of its own; for its timings its launcher takes the place
+of the built one in the kernel's ``Kernel``, so the wrapper, its checks and
+its scratch are the source's.  For each kernel, shape and variant it prints the max_abs_err of
 the source and of the variant against the float64 plain version (at the
 kernel's gate: a variant that misses it says so) and their device times
 (``chip_smoke.cuda_ms``), taken in turns: source, variant, variant,
@@ -101,7 +102,178 @@ _PAIR_MAX = """#pragma unroll 4
       }
     }
   }"""
+# kernels 12 and 13: the accurate functions in place of density_mixture::FastMath
+_ACCURATE_MATH = ("using Math = density_mixture::FastMath;", """struct Math {
+  static __device__ __forceinline__ float log(float x) { return logf(x); }
+  static __device__ __forceinline__ float log1p_exp(float x) { return log1pf(expf(x)); }
+};""")
+# kernels 12 and 13: walker_reduce.cuh's split_reduce_groups, a chunk's sums
+# (blockIdx.y's), and the loads of a group's G stars in one step
+_CHUNK_SUMS = """  const int end = min(n_stars, (c + 1) * star_chunk);
+  float acc[TW];
+#pragma unroll
+  for (int k = 0; k < TW; ++k) acc[k] = 0.0f;
+  float live = 0.0f;
+  for (int base = c * star_chunk; base < end; base += G * kThreads) {
+    typename Body::Star s[G];
+    bool on[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int i = base + j * kThreads + threadIdx.x;
+      s[j] = body.load(min(i, n_stars - 1));
+      on[j] = i < end && body.live(s[j]);
+      live += on[j] ? 1.0f : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < TW; ++k) {
+      typename Body::Group group;
+#pragma unroll
+      for (int j = 0; j < G; ++j) body.add(k, j, on[j], s[j], group);
+      acc[k] += group.total();
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < TW; ++k) acc[k] = fmaf(live, body.per_live(k), acc[k]);
+  __shared__ float red[TW][kWarps];
+  block_reduce_spread<TW>(acc, red);
+  if (threadIdx.x < TW && w0 + threadIdx.x < n_walkers)
+    dst[static_cast<size_t>(c) * n_walkers + w0 + threadIdx.x] =
+        block_total(red, threadIdx.x);
+"""
+_GROUP_STEP = _CHUNK_SUMS[_CHUNK_SUMS.index("    typename Body::Star s[G];"):
+                          _CHUNK_SUMS.index("  }\n#pragma unroll\n  for (int k = 0; k < TW; ++k) acc[k] = fmaf")]
+
+
+def _stars_a_step(n):
+    """split_reduce_groups loading n of a group's G stars a step at the
+    8-walker tile, each walker's group carried over the steps (the same
+    terms in the same order)."""
+    return ("walker_reduce.cuh", _GROUP_STEP, f"""    typename Body::Group group[TW];
+    constexpr int S = TW == 8 ? {n} : G;
+#pragma unroll
+    for (int j0 = 0; j0 < G; j0 += S) {{
+      typename Body::Star s[S];
+      bool on[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {{
+        const int i = base + (j0 + j) * kThreads + threadIdx.x;
+        s[j] = body.load(min(i, n_stars - 1));
+        on[j] = i < end && body.live(s[j]);
+        live += on[j] ? 1.0f : 0.0f;
+      }}
+#pragma unroll
+      for (int k = 0; k < TW; ++k) {{
+#pragma unroll
+        for (int j = 0; j < S; ++j) body.add(k, j0 + j, on[j], s[j], group[k]);
+      }}
+    }}
+#pragma unroll
+    for (int k = 0; k < TW; ++k) acc[k] += group[k].total();
+""")
+
+
+def _walk_chunks(kernel):
+    """At the 8-walker tile a block takes up to 8 chunks one after another
+    (the tile's constants set and the block started once, not once a chunk;
+    the same bits), a grid of ceil(chunks / 8) blocks over blockIdx.y."""
+    body = _CHUNK_SUMS.replace("  __shared__ float red[TW][kWarps];\n", "")
+    return [("walker_reduce.cuh", "  const int c = blockIdx.y;\n" + _CHUNK_SUMS,
+             """  __shared__ float red[TW][kWarps];
+  constexpr int kWalk = TW == 8 ? 8 : 1;
+  const int n_chunks = (n_stars + star_chunk - 1) / star_chunk;
+  for (int c = blockIdx.y * kWalk; c < min(n_chunks, (blockIdx.y + 1) * kWalk); ++c) {
+""" + "".join("  " + ln if ln.strip() else ln for ln in body.splitlines(True))
+             + "    __syncthreads();   // red is read before the next chunk's sums\n  }\n"),
+            (f"        {kernel}<TW><<<grid,",
+             f"        grid.y = TW == 8 ? (grid.y + 7) / 8 : grid.y;\n"
+             f"        {kernel}<TW><<<grid,")]
+
+
+_MIN_BLOCKS = "kMinBlocks = TW == 8 ? 3 : 4;"
+_TWO_BLOCKS = (_MIN_BLOCKS, "kMinBlocks = TW == 8 ? 2 : 4;")
+_FOUR_BLOCKS = (_MIN_BLOCKS, "kMinBlocks = TW == 8 ? 4 : 4;")
+_TWO_BLOCKS_AT_TWO = (_MIN_BLOCKS, "kMinBlocks = TW == 8 ? 3 : 2;")
+_FOUR_WALKERS = [("          ? launch<8>(", "          ? launch<4>("),
+                 (_MIN_BLOCKS, "kMinBlocks = TW == 2 ? 4 : 3;")]
+
+
+def _constants_in_registers(n_params):
+    """Kernels 12 and 13 with each thread holding its tile's Walker
+    constants in registers, set by every thread, at two blocks an SM (128
+    registers) at the 8-walker tile."""
+    return [("  const Walker* m;                  // the tile's, in shared memory\n",
+             "  Walker m[TW];\n"),
+            (f"""      : rows(r),
+        m(walker_reduce::tile_constants<TW, Walker>(
+            w0, n_walkers, [&](Walker& c, int w) {{ c.set(params + {n_params} * w); }})) {{}}""",
+             f"""      : rows(r) {{
+#pragma unroll
+    for (int k = 0; k < TW; ++k) m[k].set(params + {n_params} * min(w0 + k, n_walkers - 1));
+  }}"""),
+            _TWO_BLOCKS]
+
+
+_GB_V2_RCP = """    const float inv = density_mixture::rcp_approx(norm * nb);
+    const float inv_norm = nb * inv;
+    const float inv_nb = norm * inv;
+"""
+_MODEL_V2_RCP = """    const float qn = q * q * norm;
+    const float inv = density_mixture::rcp_approx(qn * nb);
+    const float dr2 = d2 * d2 * (nb * inv);
+    const float qnb = q * nb;
+    const float db = s.v - w.v_back;
+    const float db2 = on ? db * db * (qn * inv) : 0.0f;
+    const float delta = (s.ln_d - w.ln_f) + 0.5f * Math::log(qnb * qnb * inv)
+"""
 VARIANTS = {
+    "constant_gb_v2": ("constant_gb_v2.cu", {
+        "logf, log1pf(expf) (the accurate functions)": [_ACCURATE_MATH],
+        "IEEE divisions 1 / n, 1 / nb": [(_GB_V2_RCP, """    const float inv_norm = 1.0f / norm;
+    const float inv_nb = 1.0f / nb;
+""")],
+        "two rsqrtf (1 / n = rs^2, 1 / nb = rb^2)": [(_GB_V2_RCP, """    const float rs = rsqrtf(norm), rb = rsqrtf(nb);
+    const float inv_norm = rs * rs;
+    const float inv_nb = rb * rb;
+""")],
+        "__fdividef for the shared reciprocal": [
+            ("density_mixture::rcp_approx(norm * nb)", "__fdividef(1.0f, norm * nb)")],
+        "1 star a step at the 8-walker tile": [_stars_a_step(1)],
+        "2 stars a step at the 8-walker tile": [_stars_a_step(2)],
+        "up to 8 chunks a block at the 8-walker tile": _walk_chunks("constant_gb_v2_kernel"),
+        "the tile's constants in registers (two blocks an SM)":
+            _constants_in_registers(7),
+        "two blocks an SM at the 8-walker tile": [_TWO_BLOCKS],
+        "four blocks an SM at the 8-walker tile": [_FOUR_BLOCKS],
+        "two blocks an SM at the 2-walker tile": [_TWO_BLOCKS_AT_TWO],
+        "4-walker wide tile (three blocks an SM)": _FOUR_WALKERS,
+    }),
+    "model_gb_v2": ("model_gb_v2.cu", {
+        "logf, log1pf(expf) (the accurate functions)": [_ACCURATE_MATH],
+        "IEEE divisions (d^2 / (q^2 n), 1 / nb, nb / n)": [(_MODEL_V2_RCP, """    const float dr2 = (d2 * d2) / (q * q * norm);
+    const float db = s.v - w.v_back;
+    const float db2 = on ? db * db * (1.0f / nb) : 0.0f;
+    const float delta = (s.ln_d - w.ln_f) + 0.5f * Math::log(nb / norm)
+""")],
+        "two rsqrtf (of q^2 n and of nb)": [(_MODEL_V2_RCP, """    const float rq = rsqrtf(q * q * norm), rb = rsqrtf(nb);
+    const float t = d2 * rq;
+    const float dr2 = t * t;
+    const float qr = q * rq;
+    const float db = s.v - w.v_back;
+    const float db2 = on ? db * db * (rb * rb) : 0.0f;
+    const float delta = (s.ln_d - w.ln_f) + 0.5f * Math::log(nb * (qr * qr))
+""")],
+        "__fdividef for the shared reciprocal": [
+            ("density_mixture::rcp_approx(qn * nb)", "__fdividef(1.0f, qn * nb)")],
+        "1 star a step at the 8-walker tile": [_stars_a_step(1)],
+        "2 stars a step at the 8-walker tile": [_stars_a_step(2)],
+        "up to 8 chunks a block at the 8-walker tile": _walk_chunks("model_gb_v2_kernel"),
+        "the tile's constants in registers (two blocks an SM)":
+            _constants_in_registers(9),
+        "two blocks an SM at the 8-walker tile": [_TWO_BLOCKS],
+        "four blocks an SM at the 8-walker tile": [_FOUR_BLOCKS],
+        "two blocks an SM at the 2-walker tile": [_TWO_BLOCKS_AT_TWO],
+        "4-walker wide tile (three blocks an SM)": _FOUR_WALKERS,
+    }),
     "constant_mixture": ("constant_mixture.cu", {
         "logf, log1pf(expf) (the accurate pair)": [
             _ACCURATE_LOG, (_LOG1P, "log1pf(expf(-fabsf(a - s.lb)))")],
@@ -205,18 +377,19 @@ def build_variants(kernel_name):
     from mcmc_dynamics_tpu_torch.ops._build import _NVCC_FLAGS, find_nvcc
 
     source, variants = VARIANTS[kernel_name]
-    text = (CSRC / source).read_text()
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="kernel_variants_"))
     procs = {}
     for i, (name, edits) in enumerate(variants.items()):
-        var = text
-        for old, new in edits:
-            if old not in var:
-                raise ValueError(f"{kernel_name} variant {name!r}: {old!r} not in {source}")
-            var = var.replace(old, new)
         src = tmp / f"v{i}" / source
         shutil.copytree(CSRC, src.parent)
-        src.write_text(var)
+        for edit in edits:
+            # (old, new) in the kernel's source, (file, old, new) in a header
+            target, old, new = edit if len(edit) == 3 else (source, *edit)
+            path = src.parent / target
+            var = path.read_text()
+            if old not in var:
+                raise ValueError(f"{kernel_name} variant {name!r}: {old!r} not in {target}")
+            path.write_text(var.replace(old, new))
         lib = src.with_suffix(".so")
         cmd = [find_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -234,7 +407,8 @@ def build_variants(kernel_name):
 def kernel_cases(kernel_name, device):
     """(Kernel, [(label, run, args, plain on float64 args, tol)]) at the
     kernel's shapes: its main path's and 16384 walkers (kernel 10: 20480
-    targets over path E2's 8192 catalog stars and a ragged 3001)."""
+    targets over path E2's 8192 catalog stars and a ragged 3001; kernels 12
+    and 13, on no path, at 128 x 20480 and 16384 x 10240)."""
     import torch
 
     from mcmc_dynamics_tpu_torch import ops
@@ -252,6 +426,24 @@ def kernel_cases(kernel_name, device):
             cases.append((chip_smoke.size_label(shape), chip_smoke.constant_mixture_split,
                           a32, plain, chip_smoke.DIRECT_TOL))
         return ops.CONSTANT_MIXTURE, cases
+    if kernel_name in ("constant_gb_v2", "model_gb_v2"):
+        v2 = kernel_name == "constant_gb_v2"
+        make = (chip_smoke.constant_inputs(device, gb=True) if v2
+                else chip_smoke.model_gb_v2_inputs(device))
+        run = ops.constant_gb_v2_lnlike_batched if v2 else ops.model_gb_v2_lnlike_batched
+        ref = (ops.constant_gb_v2_lnlike_reference if v2
+               else ops.model_gb_v2_lnlike_reference)
+        cases = []
+        for shape in ((128, 20_480, 0), (16384, 10_000, 240)):
+            a32, _, kw64, _ = make(shape)
+
+            def plain(a32=a32, kw64=kw64):
+                a64 = [t.double() for t in a32]
+                return torch.cat([ref(p, *a64[1:], **kw64)
+                                  for p in torch.split(a64[0], 2048)])
+            cases.append((chip_smoke.size_label(shape), run, a32, plain,
+                          chip_smoke.DIRECT_TOL))
+        return ops.KERNELS[kernel_name], cases
     if kernel_name == "model_sufficient":
         fit, _ = chip_smoke.mock_fit(device, n_stars=100_000, seed=5, bounded=False)
         stats = fit.sufficient_stats()

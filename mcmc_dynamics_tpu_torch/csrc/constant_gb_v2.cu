@@ -21,15 +21,28 @@
 // below FLT_MAX ~ 3.4e38) and >= verr2 > 0; each D + f is clamped to
 // [1e-15, 1e15].
 //
-// What bounds it on this card: the special-function unit, now at ~3.75
-// logs/exps plus two reciprocals a pair, against ~47 FP32 flops.  Layout
-// as kernel 5: one block of 256 threads per tile of 8 (or, for half-ensembles,
-// 2) walkers in registers; each thread takes 4 stars a step, at i, i + 256,
-// i + 512 and i + 768 (coalesced loads), and folds their normalisations into
-// one log of the product of four nb and two logs of pairs of D + f.  Masked
-// and tail lanes are selected away (nb and D + f replaced by 1), never
-// multiplied by 0, and the block sums come in a fixed order
-// (walker_reduce.cuh).
+// What bounds it on this card: the special-function unit and the issue of
+// the pair's ~45 other instructions.  Every transcendental of the pair is one
+// MUFU operation (density_mixture::FastMath: __logf of nb / n, __logf(1 +
+// __expf(.)), __logf of the products), and the two divisions share one
+// approximate reciprocal, 1 / (n nb): 1 / n = nb / (n nb), 1 / nb = n / (n
+// nb), and nb / n = nb^2 / (n nb) (n nb <= ~1e12 for a physical sigma_max),
+// so a pair issues 4.75 MUFU operations and no IEEE division
+// (kernel_variants.py times the accurate functions and the divisions).
+//
+// Design (walker_reduce::split_reduce_groups): a block takes a tile of 8
+// walkers (2 for a half-ensemble), whose constants it sets once in shared
+// memory (Walker, walker_reduce::tile_constants), and chunks of stars over
+// blockIdx.y
+// (the wrapper's size for this kernel, ops/probe_mixture.py:
+// CONSTANT_GB_V2.star_chunk, a multiple of 1024), one chunk a block, so
+// that 128 walkers x 20480 stars launch 64 x 10 blocks, not 64.  A second
+// launch adds the chunks in order (sum_chunks_kernel<12>).  Thread
+// t's product groups are the stars c chunk + 1024 m + t + 256 j, j = 0..3,
+// whatever the tile, loaded in one step.  Masked and tail lanes are
+// selected away (factors of 1, pair 0), never multiplied by 0; the warp
+// sums, the warps and the chunks are added in a fixed order, so a walker's
+// value is the same in every batch.
 
 #include <cfloat>
 
@@ -39,114 +52,137 @@
 namespace {
 
 using walker_reduce::kThreads;
-using walker_reduce::kWarps;
-constexpr int kGroup = 4;           // stars per thread and step
+using Math = density_mixture::FastMath;
+constexpr int kGroup = 4;           // stars a product group
+
+// Blocks an SM that each tile is compiled for (__launch_bounds__): three at
+// the 8-walker tile, so at most 80 registers a thread, which the pair fits
+// because the tile's constants live in shared memory (chip_smoke.py's phase
+// 1 prints ptxas's registers and spills); four at the 2-walker tile (64
+// registers).  kernel_variants.py times two and four blocks at the 8-walker
+// tile and the constants in registers.
+template <int TW>
+constexpr int kMinBlocks = TW == 8 ? 3 : 4;
+
+struct Rows {
+  const float *gx, *gy, *v, *verr2, *density, *ln_density, *mask;
+};
+
+// One walker's constants, set once a block in shared memory
+// (walker_reduce::tile_constants) and read from there by every pair.
+struct alignas(16) Walker {  // aligned for 16-byte loads from shared memory
+  float v_sys, sigma2, vx, vy, v_back, sb2, f_back, ln_f;
+
+  __device__ __forceinline__ void set(const float* __restrict__ p) {
+    v_sys = p[0];
+    sigma2 = p[1] * p[1];
+    vx = p[2];
+    vy = p[3];
+    v_back = p[4];
+    sb2 = p[5] * p[5];
+    f_back = fmaxf(p[6], FLT_MIN);
+    ln_f = logf(f_back);
+  }
+};
 
 template <int TW>
-__global__ void __launch_bounds__(kThreads)
-constant_gb_v2_kernel(const float* __restrict__ params, int n_walkers,
-                      const float* __restrict__ gx, const float* __restrict__ gy,
-                      const float* __restrict__ v, const float* __restrict__ verr2,
-                      const float* __restrict__ density,
-                      const float* __restrict__ ln_density,
-                      const float* __restrict__ mask, int n_stars,
-                      float* __restrict__ out) {
+struct Tile {
+  Rows rows;
+  const Walker* m;                  // the tile's, in shared memory
+
+  struct Star {
+    float gx, gy, v, e2, d, ln_d;
+    bool on;
+  };
+  using Group = density_mixture::V2Group<Math>;
+
+  __device__ __forceinline__ Tile(const Rows& r, const float* __restrict__ params,
+                                  int w0, int n_walkers)
+      : rows(r),
+        m(walker_reduce::tile_constants<TW, Walker>(
+            w0, n_walkers, [&](Walker& c, int w) { c.set(params + 7 * w); })) {}
+
+  __device__ __forceinline__ Star load(int i) const {
+    Star s;
+    s.gx = __ldg(rows.gx + i);
+    s.gy = __ldg(rows.gy + i);
+    s.v = __ldg(rows.v + i);
+    s.e2 = __ldg(rows.verr2 + i);
+    s.d = __ldg(rows.density + i);
+    s.ln_d = __ldg(rows.ln_density + i);
+    s.on = __ldg(rows.mask + i) > 0.0f;
+    return s;
+  }
+
+  __device__ __forceinline__ bool live(const Star& s) const { return s.on; }
+
+  __device__ __forceinline__ void add(int k, int j, bool on, const Star& s,
+                                      Group& g) const {
+    const Walker& w = m[k];
+    const float norm = s.e2 + w.sigma2;
+    const float nb = s.e2 + w.sb2;
+    const float inv = density_mixture::rcp_approx(norm * nb);
+    const float inv_norm = nb * inv;
+    const float inv_nb = norm * inv;
+    const float d = s.v - w.v_sys - s.gx * w.vx - s.gy * w.vy;
+    const float dr2 = d * d * inv_norm;
+    const float db = s.v - w.v_back;
+    const float db2 = on ? db * db * inv_nb : 0.0f;
+    const float delta = (s.ln_d - w.ln_f) + 0.5f * Math::log(nb * inv_norm)
+        - 0.5f * (dr2 - db2);
+    g.add(j, on, delta, db2, nb, s.d, w.f_back);
+  }
+
+  __device__ __forceinline__ float per_live(int k) const {
+    return m[k].ln_f - 0.5f * density_mixture::kLog2Pi;
+  }
+};
+
+template <int TW>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<TW>)
+constant_gb_v2_kernel(const float* __restrict__ params, int n_walkers, Rows rows,
+                      int n_stars, int star_chunk, float* __restrict__ dst) {
   const int w0 = blockIdx.x * TW;
-  float v_sys[TW], sigma2[TW], vx[TW], vy[TW], v_back[TW], sb2[TW], f_back[TW];
-  float ln_f[TW], acc[TW];
-#pragma unroll
-  for (int k = 0; k < TW; ++k) {
-    // the ragged last tile repeats the last walker and never writes it
-    const float* p = params + 7 * min(w0 + k, n_walkers - 1);
-    v_sys[k] = p[0];
-    sigma2[k] = p[1] * p[1];
-    vx[k] = p[2];
-    vy[k] = p[3];
-    v_back[k] = p[4];
-    sb2[k] = p[5] * p[5];
-    f_back[k] = fmaxf(p[6], FLT_MIN);
-    ln_f[k] = logf(f_back[k]);
-    acc[k] = 0.0f;
-  }
-
-  float live = 0.0f;
-  for (int base = 0; base < n_stars; base += kGroup * kThreads) {
-    float gxi[kGroup], gyi[kGroup], vi[kGroup], e2[kGroup], di[kGroup], lndi[kGroup];
-    bool on[kGroup];
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int i = base + j * kThreads + threadIdx.x;
-      const bool in = i < n_stars;
-      gxi[j] = in ? gx[i] : 0.0f;
-      gyi[j] = in ? gy[i] : 0.0f;
-      vi[j] = in ? v[i] : 0.0f;
-      e2[j] = in ? verr2[i] : 0.0f;
-      di[j] = in ? density[i] : 0.0f;
-      lndi[j] = in ? ln_density[i] : 0.0f;
-      on[j] = in && mask[i] > 0.0f;
-      live += on[j] ? 1.0f : 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < TW; ++k) {
-      density_mixture::V2Group group;
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        const float norm = e2[j] + sigma2[k];
-        const float nb = e2[j] + sb2[k];
-        const float inv_norm = 1.0f / norm;
-        const float inv_nb = 1.0f / nb;
-        const float d = vi[j] - v_sys[k] - gxi[j] * vx[k] - gyi[j] * vy[k];
-        const float dr2 = d * d * inv_norm;
-        const float db = vi[j] - v_back[k];
-        const float db2 = on[j] ? db * db * inv_nb : 0.0f;
-        const float delta = (lndi[j] - ln_f[k]) + 0.5f * logf(nb * inv_norm)
-            - 0.5f * (dr2 - db2);
-        group.add(j, on[j], delta, db2, nb, di[j], f_back[k]);
-      }
-      acc[k] += group.total();
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < TW; ++k)
-    acc[k] = fmaf(live, ln_f[k] - 0.5f * density_mixture::kLog2Pi, acc[k]);
-
-  __shared__ float red[TW][kWarps];
-  walker_reduce::block_reduce<TW>(acc, red);
-  if (threadIdx.x < TW && w0 + threadIdx.x < n_walkers)
-    out[w0 + threadIdx.x] = walker_reduce::block_total(red, threadIdx.x);
+  const Tile<TW> tile(rows, params, w0, n_walkers);
+  walker_reduce::split_reduce_groups<TW, kGroup>(tile, w0, n_walkers, n_stars, star_chunk,
+                                                 dst);
 }
 
 template <int TW>
-cudaError_t launch(const float* params, int n_walkers, const float* gx,
-                   const float* gy, const float* v, const float* verr2,
-                   const float* density, const float* ln_density,
-                   const float* mask, int n_stars, float* out,
+cudaError_t launch(const float* params, int n_walkers, const Rows& rows, int n_stars,
+                   int star_chunk, int n_chunks, float* partial, float* out,
                    cudaStream_t stream) {
-  const int grid = (n_walkers + TW - 1) / TW;
-  constant_gb_v2_kernel<TW><<<grid, kThreads, 0, stream>>>(
-      params, n_walkers, gx, gy, v, verr2, density, ln_density, mask, n_stars,
-      out);
-  return cudaGetLastError();
+  return walker_reduce::launch_split<12, TW>(
+      n_walkers, n_stars, star_chunk, n_chunks, partial, out, stream,
+      [&](dim3 grid, float* dst) {
+        constant_gb_v2_kernel<TW><<<grid, kThreads, 0, stream>>>(
+            params, n_walkers, rows, n_stars, star_chunk, dst);
+      });
 }
 
 }  // namespace
 
 // C interface for ctypes, as constant_gb_launch (constant_gb.cu): float32
 // device pointers, params row-major (n_walkers, 7), stars contiguous
-// (n_stars,); ``stream`` is a cudaStream_t.  Returns the cudaError_t of the
-// launch (0 on success).
+// (n_stars,), ``partial`` scratch of (n_chunks, n_walkers), which may be null
+// when n_chunks is 1, out (n_walkers,); the n_chunks chunks of star_chunk
+// stars (a multiple of 1024) must cover the stars; ``stream`` is a
+// cudaStream_t.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int constant_gb_v2_launch(const float* params, int n_walkers,
                                      const float* gx, const float* gy, const float* v,
                                      const float* verr2, const float* density,
                                      const float* ln_density, const float* mask,
-                                     int n_stars, float* out, void* stream) {
+                                     int n_stars, int star_chunk, int n_chunks,
+                                     float* partial, float* out, void* stream) {
   if (n_walkers <= 0) return 0;
+  if (star_chunk % (kGroup * kThreads) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Rows rows{gx, gy, v, verr2, density, ln_density, mask};
   const cudaError_t err =
       walker_reduce::walker_tile(n_walkers) == 8
-          ? launch<8>(params, n_walkers, gx, gy, v, verr2, density, ln_density,
-                      mask, n_stars, out, s)
-          : launch<2>(params, n_walkers, gx, gy, v, verr2, density, ln_density,
-                      mask, n_stars, out, s);
+          ? launch<8>(params, n_walkers, rows, n_stars, star_chunk, n_chunks, partial,
+                      out, s)
+          : launch<2>(params, n_walkers, rows, n_stars, star_chunk, n_chunks, partial,
+                      out, s);
   return static_cast<int>(err);
 }

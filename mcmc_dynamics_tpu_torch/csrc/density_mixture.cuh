@@ -49,12 +49,28 @@ __device__ __forceinline__ float term(float ln_c, float ln_b, float ln_f,
 // and logs of the two products of D + f clamped to [1e-15, 1e15] (finite and
 // non-zero in float32); masked stars are selected away (factors of 1).  The
 // caller adds (live stars) (ln f - 1/2 log 2 pi) once per walker.
+//
+// ``Math`` gives the logs: FastMath's are single MUFU operations (MUFU.LG2
+// and MUFU.EX2 with one FMUL each; logf and log1pf compile to FMA
+// polynomials).  __logf is within 2^-21.4 absolute on [0.5, 2] and 3 ulp
+// elsewhere: nb / n, a product of four nb (<= ~1e16, >= verr2^4) and one of
+// two clamped D + f are normal numbers, and 1 + exp(-|delta|) lies in [1, 2],
+// where rounding y = exp(-|delta|) into 1 + y costs at most 2^-24 absolute.
+struct FastMath {
+  static __device__ __forceinline__ float log(float x) { return __logf(x); }
+  // log(1 + exp(x)) for x <= 0
+  static __device__ __forceinline__ float log1p_exp(float x) {
+    return __logf(1.0f + __expf(x));
+  }
+};
+
+template <class Math>
 struct V2Group {
   float pair = 0.0f, nb01 = 1.0f, nb23 = 1.0f, s01 = 1.0f, s23 = 1.0f;
 
   __device__ __forceinline__ void add(int j, bool on, float delta, float db2,
                                       float nb, float density, float f_back) {
-    const float t = fmaxf(delta, 0.0f) + log1pf(expf(-fabsf(delta))) - 0.5f * db2;
+    const float t = fmaxf(delta, 0.0f) + Math::log1p_exp(-fabsf(delta)) - 0.5f * db2;
     pair += on ? t : 0.0f;
     const float nbm = on ? nb : 1.0f;
     const float sf = on ? fminf(fmaxf(density + f_back, 1e-15f), 1e15f) : 1.0f;
@@ -68,8 +84,17 @@ struct V2Group {
   }
 
   __device__ __forceinline__ float total() const {
-    return pair - 0.5f * logf(nb01 * nb23) - (logf(s01) + logf(s23));
+    return pair - 0.5f * Math::log(nb01 * nb23) - (Math::log(s01) + Math::log(s23));
   }
 };
+
+// 1 / x as one MUFU.RCP (rcp.approx.ftz: within 1 ulp for normal x, 0 for
+// |x| above 2^126): the reciprocal that kernels 12 and 13 share between the
+// member's 1 / n and the background's 1 / nb.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 }  // namespace density_mixture

@@ -1,18 +1,19 @@
-// Shared pieces of the walker x star reductions (kernels 1 and 3 to 8), and
-// the fold and finishing pass of kernel 2's split contraction.
+// Shared pieces of the walker x star reductions (kernels 1, 3 to 8, 12 and
+// 13), and the fold and finishing pass of kernel 2's split contraction.
 //
 // Layout common to them: one block of kThreads threads per tile of TW
 // walkers, the tile's per-walker constants in registers (in shared memory for
-// kernels 1 and 3: tile_constants), threads striding over the stars with
+// kernels 1, 3, 12 and 13: tile_constants), threads striding over the stars with
 // coalesced loads of the star rows, and per-thread partial sums that
 // block_reduce (or block_reduce_spread, the same bits) folds in a FIXED order
 // (warp shuffle, then across warps in warp order).  No atomics: a walker's result does not depend on the batch it
 // is evaluated in, which is what keeps a checkpoint resume bitwise.
 //
-// The split form (split_reduce, kernels 1 and 3 to 8) also cuts the star axis
-// into chunks over blockIdx.y, so that a half-ensemble of 32 or 128 walkers
-// still fills the card: each block writes one partial sum per walker into a
-// (chunks, W) buffer, and sum_chunks_kernel adds them in chunk order (kernel
+// The split form (split_reduce, kernels 1 and 3 to 8; split_reduce_groups,
+// kernels 12 and 13, whose terms come a group of four stars at a time) also
+// cuts the star axis into chunks over blockIdx.y, so that a half-ensemble of
+// 32 or 128 walkers still fills the card: each block writes one partial sum
+// per walker into a (chunks, W) buffer, and sum_chunks_kernel adds them in chunk order (kernel
 // 2 cuts its table rows so, through launch_split and block_reduce_spread, and
 // sum_chunks_kernel<2> adds its chunks).  The
 // caller chooses the chunks (ops/lnlike_kernels.py: each kernel's own chunk
@@ -173,6 +174,62 @@ __device__ __forceinline__ void split_reduce(const Body& body, int w0, int n_wal
     block_reduce_spread<TW>(acc, red);
   else
     block_reduce<TW>(acc, red);
+  if (threadIdx.x < TW && w0 + threadIdx.x < n_walkers)
+    dst[static_cast<size_t>(c) * n_walkers + w0 + threadIdx.x] =
+        block_total(red, threadIdx.x);
+}
+
+// split_reduce for a body whose terms come a group of G stars at a time
+// (kernels 12 and 13: logs of products of a group's normalisations).  The
+// groups are fixed by the star index alone: thread t's m-th group of chunk c
+// = blockIdx.y holds the stars c * star_chunk + G * kThreads * m + t +
+// kThreads * j, j = 0 .. G - 1, loaded in one step, so a walker's order of
+// terms does not depend on the walker tile; star_chunk must be a multiple of
+// G * kThreads, so that no group straddles two chunks.  ``body`` holds the
+// tile's per-walker constants and gives
+//
+//   typename Body::Star load(int i)    star row i
+//   bool live(const Star&)             unmasked
+//   typename Body::Group               one walker's running sums of a group,
+//                                      whose total() is the group's term
+//   void add(int k, int j, bool on, const Star&, Group&)   its j-th star
+//   float per_live(int k)              added once per live star of the chunk
+//
+// Lanes past the chunk re-read a star and are passed with on = false, as the
+// masked stars; the block's sums are folded by block_reduce_spread.
+template <int TW, int G, class Body>
+__device__ __forceinline__ void split_reduce_groups(const Body& body, int w0,
+                                                    int n_walkers, int n_stars,
+                                                    int star_chunk,
+                                                    float* __restrict__ dst) {
+  const int c = blockIdx.y;
+  const int end = min(n_stars, (c + 1) * star_chunk);
+  float acc[TW];
+#pragma unroll
+  for (int k = 0; k < TW; ++k) acc[k] = 0.0f;
+  float live = 0.0f;
+  for (int base = c * star_chunk; base < end; base += G * kThreads) {
+    typename Body::Star s[G];
+    bool on[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int i = base + j * kThreads + threadIdx.x;
+      s[j] = body.load(min(i, n_stars - 1));
+      on[j] = i < end && body.live(s[j]);
+      live += on[j] ? 1.0f : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < TW; ++k) {
+      typename Body::Group group;
+#pragma unroll
+      for (int j = 0; j < G; ++j) body.add(k, j, on[j], s[j], group);
+      acc[k] += group.total();
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < TW; ++k) acc[k] = fmaf(live, body.per_live(k), acc[k]);
+  __shared__ float red[TW][kWarps];
+  block_reduce_spread<TW>(acc, red);
   if (threadIdx.x < TW && w0 + threadIdx.x < n_walkers)
     dst[static_cast<size_t>(c) * n_walkers + w0 + threadIdx.x] =
         block_total(red, threadIdx.x);

@@ -319,7 +319,7 @@ def _launch(kernel, name, params, n_cols, stars, extra=()):
     """Check a CUDA launch's arguments and run ``kernel``: params (W,
     n_cols) float32, star columns (N,) float32 on the same card, contiguous;
     ``extra`` are scalar arguments passed after the star count.  A split
-    kernel (one with a ``star_chunk``: kernels 1 and 3 to 8) also gets
+    kernel (one with a ``star_chunk``: kernels 1, 3 to 8, 12 and 13) also gets
     its chunk size, the chunk count and the (star_chunks(N, chunk), W)
     scratch of the per-chunk sums before ``out``: null with a single chunk,
     which needs none."""

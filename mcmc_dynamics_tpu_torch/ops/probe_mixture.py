@@ -17,7 +17,10 @@ These are entry points only, as in the reference, where they are probes: no
 model dispatches them.  Each ``*_reference`` function is the plain torch
 version, which a tensor on the CPU runs; a CUDA tensor launches
 ``csrc/constant_gb_v2.cu`` or ``csrc/model_gb_v2.cu`` (float32, contiguous,
-on one card) or raises.
+on one card) or raises.  The kernels split the stars in chunks and take a
+product group's four stars at stride 256 (thread t's stars c chunk + 1024 m
++ t + 256 j), where the plain versions take four consecutive stars: the
+same sum of logs, grouped otherwise.
 """
 
 from __future__ import annotations
@@ -38,8 +41,14 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-CONSTANT_GB_V2 = Kernel("constant_gb_v2_launch", [_P, _I] + [_P] * 7 + [_I, _P])
-MODEL_GB_V2 = Kernel("model_gb_v2_launch", [_P, _I] + [_P] * 8 + [_I, _P])
+# both split the stars over blocks, as kernels 5 and 6 do, in chunks of their
+# own ``star_chunk`` (a multiple of a product group of four stars x 256
+# threads, so that no group straddles two chunks): (..., n_stars, star_chunk,
+# n_chunks, partial, out)
+CONSTANT_GB_V2 = Kernel("constant_gb_v2_launch",
+                        [_P, _I] + [_P] * 7 + [_I, _I, _I, _P, _P], star_chunk=2048)
+MODEL_GB_V2 = Kernel("model_gb_v2_launch",
+                     [_P, _I] + [_P] * 8 + [_I, _I, _I, _P, _P], star_chunk=2048)
 
 
 def _sum_log_products(x, k: int):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Per-pair instructions of the star loops of kernels 1, 3, 6 and 8, and
-the inner loops of kernels 9 and 10, read from SASS.
+"""Per-pair instructions of the star loops of kernels 1, 3, 6, 8, 12 and
+13, and the inner loops of kernels 9 and 10, read from SASS.
 
 Run from the root of the repository, on a machine with the CUDA toolkit:
 
@@ -8,10 +8,11 @@ Run from the root of the repository, on a machine with the CUDA toolkit:
 
 It builds the port's kernels (``mcmc_dynamics_tpu_torch.ops._build``), runs
 ``cuobjdump -sass`` on the library and, for each instantiation of
-``model_lnlike_kernel``, ``model_freecenter_kernel``, ``model_mixture_kernel``
-and ``double_model_gb_kernel``, finds the star loop: the smallest loop (a
-backward branch) that issues MUFU operations.  Its pair count is its
-MUFU.EX2 count in kernels 6 and 8 (one ``expf`` a pair) and half its
+``model_lnlike_kernel``, ``model_freecenter_kernel``, ``model_mixture_kernel``,
+``double_model_gb_kernel``, ``constant_gb_v2_kernel`` and
+``model_gb_v2_kernel``, finds the star loop: the smallest loop (a backward
+branch) that issues MUFU operations.  Its pair count is its MUFU.EX2 count
+in kernels 6, 8, 12 and 13 (one ``expf`` a pair) and half its
 MUFU.RSQ count in kernels 1 and 3 (two ``rsqrtf`` a pair, no ``expf``), and
 it prints, per pair, the instructions, the FP32 flops (FFMA x 2 + FMUL +
 FADD) and the MUFU operations by function.  This is what the compiled code
@@ -31,7 +32,8 @@ from collections import Counter
 
 # kernel -> (the MUFU function that counts its pairs, its operations a pair)
 KERNELS = {"model_lnlike_kernel": ("RSQ", 2), "model_freecenter_kernel": ("RSQ", 2),
-           "model_mixture_kernel": ("EX2", 1), "double_model_gb_kernel": ("EX2", 1)}
+           "model_mixture_kernel": ("EX2", 1), "double_model_gb_kernel": ("EX2", 1),
+           "constant_gb_v2_kernel": ("EX2", 1), "model_gb_v2_kernel": ("EX2", 1)}
 # kernels whose every innermost loop is listed by op
 LOOP_KERNELS = ("model_sufficient_kernel", "background_lse_kernel")
 

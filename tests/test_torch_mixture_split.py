@@ -489,16 +489,17 @@ def test_boundary_walkers_differ_from_the_clamped_form():
 
 
 def test_split_kernels_have_their_own_chunk():
-    """Kernels 1 and 3 to 8 split the stars, each in chunks of its own size
-    (the others take none): 2048 for kernels 5, 6 and 8, smaller ones for
-    the 32 walkers of paths A, D and G1 (kernels 1, 3 and 7) and for kernel
-    4's cheaper pair at E2's 128 walkers."""
+    """Kernels 1, 3 to 8, 12 and 13 split the stars, each in chunks of its
+    own size (the others take none): 2048 for kernels 5, 6, 8, 12 and 13,
+    smaller ones for the 32 walkers of paths A, D and G1 (kernels 1, 3 and
+    7) and for kernel 4's cheaper pair at E2's 128 walkers."""
     chunks = {name: kernel.star_chunk for name, kernel in ops.KERNELS.items()
               if kernel.star_chunk is not None}
     assert chunks == {"model_lnlike": 512, "model_freecenter": 512,
                       "constant_mixture": 1024, "constant_gb": 2048,
                       "model_mixture": 2048, "double_model": 512,
-                      "double_model_gb": 2048}
+                      "double_model_gb": 2048, "constant_gb_v2": 2048,
+                      "model_gb_v2": 2048}
 
 
 @pytest.mark.parametrize("n_stars", sorted(
