@@ -59,8 +59,11 @@ calls, and fails (non-zero exit) if any phase does:
     walkers and at the path's half-ensemble of 512, against its float64 plain
     version, and the tables against the exact star sum; and its batch
     invariance, as in phase 14;
-23. kernel 11 (the same function on the tensor cores, 3xTF32) at phase 22's
-    inputs, and on ``bench.py --validate``'s set-up at its matrix-unit gate;
+23. kernel 11 (the same function on the tensor cores, 3xTF32 ``wgmma``): one
+    bin's product against the float64 product of its rounded operands (the
+    operand layouts), the kernel at phase 22's inputs beside kernel 9 timed
+    in turns, on ``bench.py --validate``'s set-up at its matrix-unit gate,
+    and its batch invariance, as in phase 14;
 24. kernel 12 and 25. kernel 13 (the restructured density mixtures, split
     over star chunks) against their float64 plain versions at 16384 walkers
     x 1e4 stars and at 128 x 20480, beside kernels 5 and 6 on the same
@@ -78,9 +81,11 @@ overflows the TPU kernels' forms; the port's kernels stay within the float64
 plain version's tolerance there.  ``--chunk-sweep`` also times kernels 1, 3,
 4, 7, 12 and 13 at several star chunks (the kernel's chunk is an attribute
 of its launcher, so no rebuild is needed), kernel 2 at several row chunks
-(``ops.model_tensor.ROW_CHUNK``) and kernel 9 at several bin groups
-(``ops.model_sufficient.BIN_GROUP``).  Choices compiled into a source
-(kernel 9's walkers a lane, kernel 10's lanes a target) are timed by
+(``ops.model_tensor.ROW_CHUNK``), kernel 9 at several bin groups
+(``ops.model_sufficient.BIN_GROUP``) and kernel 11 at several bin groups
+and walker tiles a warpgroup (``MMA_BIN_GROUP``, ``MMA_WALKER_TILES``).
+Choices compiled into a source (kernel 9's walkers a lane, kernel 10's
+lanes a target, kernel 11's warpgroups a block) are timed by
 ``kernel_variants.py``.
 
 Each phase prints one line of numbers.  Before the last line come the card's
@@ -1280,26 +1285,72 @@ def phase_sufficient_kernel(device, fit, ensembles=(16384, 512)):
     return stats, rows
 
 
+def mma_layout_check(device, stats, b=40):
+    """Kernel 11's product of one bin alone (``model_sufficient_mma_product``)
+    for 64 of path H's walkers, against the float64 product of the same tf32
+    operands (the basis's hi rounded and its lo as the tensor core reads it,
+    13 low bits dropped; the table's hi/lo; the three passes): the operand
+    layouts (the A fragments, the B descriptor, the accumulator rows and
+    columns).  Held to 1e-5 of the largest moment (float32 accumulation); the
+    exact float64 moments are printed beside."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import model_sufficient as ms
+
+    n_coef = stats.coeffs.shape[1]
+    d8 = -(-n_coef // 8) * 8
+    params = near_truth_params(ms.MMA_TILE, seed=3, device=device)
+    scal = stats._field_scalars(params[:, 1], params[:, 2], params[:, 5])
+    basis = stats._basis(scal[0])[:, :, b].T                      # (64, D)
+    basis = torch.nn.functional.pad(basis, (0, d8 - n_coef)).contiguous()
+    got = ms.model_sufficient_mma_product(stats, b, basis)
+    torch.cuda.synchronize()
+    tab = stats.coeffs_mma[b].double()            # (hi/lo, quad, octet, column, position)
+    hi, lo = tab.permute(0, 1, 4, 2, 3).reshape(2, d8, ms.CHANNELS_PAD)
+    a = basis[:, list(ms.mma_orders(d8))].contiguous()              # by K position
+    a_hi = ms._tf32(a)
+    a_lo = ((a - a_hi).view(torch.int32) & -0x2000).view(torch.float32)
+    ref = a_lo.double() @ hi + a_hi.double() @ lo + a_hi.double() @ hi
+    exact = ms.model_sufficient_mma_product(stats.to(device="cpu", dtype=torch.float64), b,
+                                            basis.cpu().double()).to(device)
+    err = float((got.double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"kernel 11's one-bin product: max abs {err:.4g} against the "
+                             f"float64 product of its operands (largest moment {scale:.4g})")
+    print(f"phase 23 kernel model_sufficient_mma one-bin product (bin {b}, 64 walkers, "
+          f"D8={d8}): max abs {err:.4g} vs the float64 product of its tf32 hi/lo operands "
+          f"(largest moment {scale:.4g}; gate 1e-5 of it) | vs exact float64 moments "
+          f"{float((got.double() - exact).abs().max()):.4g}")
+
+
 def phase_sufficient_mma(device, stats, k9_rows):
-    """Phase 23: kernel 11 at phase 22's inputs, against the float64 plain
-    version at the tier's gate and beside kernel 9; and on bench.py
-    --validate's set-up at the matrix-unit gate it was held to there."""
+    """Phase 23: kernel 11's operand layouts on one bin; the kernel at phase
+    22's inputs, against the float64 plain version at the tier's gate and
+    beside kernel 9 (timed in turns: 9, 11, 11, 9); on bench.py --validate's
+    set-up at the matrix-unit gate it was held to there; and its batch
+    invariance at 16384 walkers."""
     from mcmc_dynamics_tpu_torch.ops import (model_sufficient_lnlike,
                                              model_sufficient_lnlike_mma)
 
+    mma_layout_check(device, stats)
     rows = []
     for k9 in k9_rows:
         row = table_kernel_row(f"model_sufficient_mma W={k9['W']}",
                                model_sufficient_lnlike_mma, stats, k9["params"],
                                TENSOR_TOL, mma=True)
         diff = float((row["out"].double() - k9["out"].double()).abs().max())
+        turns = [cuda_ms(lambda: kernel(stats, k9["params"])) for kernel in (
+            model_sufficient_lnlike, model_sufficient_lnlike_mma,
+            model_sufficient_lnlike_mma, model_sufficient_lnlike)]
         print(f"phase 23 kernel model_sufficient_mma W={row['W']} (phase 22's tables "
               f"and walkers): max_abs_err {row['max_abs_err']:.4g} (max rel "
               f"{row['max_rel_err']:.3g}) vs float64 plain (rtol {TENSOR_TOL['rtol']}, "
               f"atol {TENSOR_TOL['atol']}) | vs kernel 9 {diff:.4g} | kernel "
-              f"{row['ms']:.4f} ms ({row['ms'] / k9['ms']:.3f}x kernel 9) | plain f32 "
-              f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})")
+              f"{row['ms']:.4f} ms | in turns kernel 9, 11, 11, 9: "
+              f"{', '.join(f'{t:.4f}' for t in turns)} ms ({(turns[1] + turns[2]) / (turns[0] + turns[3]):.3f}x "
+              f"kernel 9) | plain f32 {row['plain_ms']:.4f} ms | bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         rows.append(row)
     v_stats, v_params = validate_setup(device)
     for label, kernel, mma in (("model_sufficient_mma", model_sufficient_lnlike_mma, True),
@@ -1311,7 +1362,42 @@ def phase_sufficient_mma(device, stats, k9_rows):
               f"D={v_stats.coeffs.shape[1]}): max_abs_err {row['max_abs_err']:.4g} (max "
               f"rel {row['max_rel_err']:.3g}) vs float64 plain (rtol {MXU_TOL['rtol']}, "
               f"atol {MXU_TOL['atol']}) | kernel {row['ms']:.4f} ms")
+    batch_invariance(23, "model_sufficient_mma",
+                     lambda p: model_sufficient_lnlike_mma(stats, p),
+                     sufficient_inputs(device), (k9_rows[0]["W"],))
     return rows
+
+
+def mma_sweep(device, stats, ensembles=(512, 16384)):
+    """``--chunk-sweep`` for kernel 11: its time at bin groups of 2, 4 and 8
+    (``MMA_BIN_GROUP``) and at 1-16 tiles of 64 walkers a warpgroup
+    (``MMA_WALKER_TILES``, with ``MMA_RANGES`` 1 so that the count is what
+    is set), each restored after."""
+    from mcmc_dynamics_tpu_torch.ops import model_sufficient as ms
+
+    own = ms.MMA_BIN_GROUP, ms.MMA_WALKER_TILES, ms.MMA_RANGES
+    try:
+        for n_walkers in ensembles:
+            params = near_truth_params(n_walkers, seed=n_walkers, device=device)
+            run = lambda: ms.model_sufficient_lnlike_mma(stats, params)
+            readings = []
+            for group in (2, 4, 8):
+                ms.MMA_BIN_GROUP = group
+                readings.append(f"{group}: {cuda_ms(run):.4f} ms")
+            ms.MMA_BIN_GROUP = own[0]
+            print(f"  chunk sweep model_sufficient_mma {n_walkers} walkers, bins a block "
+                  f"(own {own[0]}; {ms.mma_walker_tiles(n_walkers)} tiles a warpgroup): "
+                  + " | ".join(readings))
+            readings = []
+            ms.MMA_RANGES = 1
+            for tiles in (1, 2, 4, 8, 16):
+                ms.MMA_WALKER_TILES = tiles
+                readings.append(f"{ms.mma_walker_tiles(n_walkers)}: {cuda_ms(run):.4f} ms")
+            ms.MMA_WALKER_TILES, ms.MMA_RANGES = own[1:]
+            print(f"  chunk sweep model_sufficient_mma {n_walkers} walkers, tiles of 64 a "
+                  f"warpgroup (own {ms.mma_walker_tiles(n_walkers)}): " + " | ".join(readings))
+    finally:
+        ms.MMA_BIN_GROUP, ms.MMA_WALKER_TILES, ms.MMA_RANGES = own
 
 
 def phase_crossover(device, n_stars=16_384, n_walkers=512):
@@ -1689,6 +1775,8 @@ def main(argv=None) -> int:
                     attr="BIN_GROUP", unit="groups",
                     count=lambda shape: model_sufficient.sufficient_groups(n_bins)[1])
     sufficient_mma = phase_sufficient_mma(device, h_stats, sufficient)
+    if "--chunk-sweep" in args:
+        mma_sweep(device, h_stats)
     del h_stats
     gb_v2 = phase_v2(24, "constant_gb_v2", constant_gb_v2_lnlike_batched,
                      constant_gb_v2_lnlike_reference, constant_gb_lnlike_batched,

@@ -20,7 +20,9 @@ tensors, so on the CPU in float64 the tables equal the JAX package's.
 :func:`model_sufficient_lnlike` launches the CUDA kernel
 ``csrc/model_sufficient.cu`` (kernel 9) and
 :func:`model_sufficient_lnlike_mma` ``csrc/model_sufficient_mma.cu`` (kernel
-11, the same function with the contraction on the tensor cores) for a CUDA
+11, the same function with the contraction as 3xTF32 ``wgmma`` on the tensor
+cores, from ``coeffs_mma``: the table split into tf32 hi and lo parts once,
+when the tables are built, in the layout the product reads) for a CUDA
 tensor.  Both kernels evaluate in float32 whatever the working dtype, as the
 TPU kernels do.
 """
@@ -38,8 +40,9 @@ import torch
 from ._build import Kernel
 
 __all__ = ["ModelSufficientStats", "N_CHANNELS", "model_sufficient_lnlike",
-           "model_sufficient_lnlike_mma", "sufficient_groups", "MODEL_SUFFICIENT",
-           "MODEL_SUFFICIENT_MMA"]
+           "model_sufficient_lnlike_mma", "model_sufficient_mma_product",
+           "sufficient_groups", "mma_groups", "mma_orders", "mma_walker_tiles",
+           "MODEL_SUFFICIENT", "MODEL_SUFFICIENT_MMA"]
 
 logger = logging.getLogger(__name__)
 
@@ -72,6 +75,7 @@ class ModelSufficientStats(NamedTuple):
 
     coeffs: torch.Tensor    # (B, D, 61)
     coeffs_pad: torch.Tensor  # (B, D, 64): coeffs, channels zero-padded (kernel 9's)
+    coeffs_mma: torch.Tensor  # (B, 2, D8 / 4, 8, 8, 4) float32: kernel 11's split table
     u_bins: torch.Tensor    # (B,) expansion points u_b
     t_lo: float             # log(off)
     t_hi: float             # log(s_max + off)
@@ -167,7 +171,8 @@ class ModelSufficientStats(NamedTuple):
         dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                         device=device)
         coeffs = dev(coeffs)
-        return cls(coeffs=coeffs, coeffs_pad=_pad_channels(coeffs), u_bins=dev(u_bins),
+        return cls(coeffs=coeffs, coeffs_pad=_pad_channels(coeffs),
+                   coeffs_mma=_mma_table(coeffs), u_bins=dev(u_bins),
                    t_lo=float(t_lo), t_hi=float(t_hi), offset=float(off),
                    n_stars=float(np.sum(m)), s_max=float(s_max))
 
@@ -175,6 +180,7 @@ class ModelSufficientStats(NamedTuple):
         """Same tables on another device or in another dtype."""
         coeffs = self.coeffs.to(device=device, dtype=dtype)
         return self._replace(coeffs=coeffs, coeffs_pad=_pad_channels(coeffs),
+                             coeffs_mma=_mma_table(coeffs),
                              u_bins=self.u_bins.to(device=device, dtype=dtype))
 
     # ------------------------------------------------------------------ evaluation
@@ -275,20 +281,104 @@ def _pad_channels(coeffs):
     return torch.nn.functional.pad(coeffs, pad).contiguous()
 
 
+# kernel 11's table: the orders padded to a multiple of 8 (a k-step of
+# wgmma.m64n64k8) and the channels ordered into 64 columns so that lane t of a
+# quad, which holds columns 8 j + 2 t + e (slot 2 j + e, j = 0..7, e = 0, 1) of
+# the accumulator, holds whole payloads: slots 0-5 payload t's six combos,
+# 6-11 payload t + 4's, 12-14 the first (t even) or last (t odd) three of
+# payload 8 + t // 2, 15 the log-determinant channel on lane 0 and a zero
+# column (-1) on the others (the source's lane_term)
+def _mma_column(n: int) -> int:
+    t, slot = (n % 8) // 2, 2 * (n // 8) + n % 2
+    if slot < 12:
+        payload, combo = (t, slot) if slot < 6 else (t + 4, slot - 6)
+    elif slot < 15:
+        payload, combo = 8 + t // 2, 3 * (t % 2) + slot - 12
+    else:
+        return 0 if t == 0 else -1
+    return 1 + 6 * payload + combo
+
+
+MMA_COLUMNS = tuple(_mma_column(n) for n in range(CHANNELS_PAD))
+
+
+def _tf32(x):
+    """float32 -> float32 rounded to tf32 as ``cvt.rna.tf32.f32`` does: to
+    nearest, ties away from zero, on the 13 low mantissa bits."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def mma_orders(d8: int):
+    """The order at each K position of kernel 11's table: position
+    8 s + 4 h + t (A fragment h of k-step s on lane t) holds order
+    2 KS t + 2 s + h, KS = D8 / 8, so that lane t's positions are one run of
+    orders, which it builds by the Chebyshev recurrence."""
+    n = d8 // 4
+    return tuple(n * (p % 4) + 2 * (p // 8) + (p // 4) % 2 for p in range(d8))
+
+
+def _mma_operand(coeffs):
+    """(B, D, 61) -> (B, D8, 64) in ``coeffs``' dtype: the orders zero-padded to
+    D8, a multiple of 8, in ``mma_orders`` order, the channels in
+    ``MMA_COLUMNS`` order (zero columns for -1)."""
+    n_bins, n_coef, _ = coeffs.shape
+    d8 = -(-n_coef // 8) * 8
+    # a zero column after the 61 and zero orders after the D stand for the pads
+    cols = torch.tensor([c if c >= 0 else N_CHANNELS for c in MMA_COLUMNS],
+                        device=coeffs.device)
+    rows = torch.tensor(mma_orders(d8), device=coeffs.device)
+    padded = torch.nn.functional.pad(coeffs, (0, 1, 0, d8 - n_coef))
+    return padded[:, rows][:, :, cols]
+
+
+def _mma_table(coeffs):
+    """Kernel 11's table, (B, 2, D8 / 4, 8, 8, 4) float32: per bin the tf32
+    split hi = tf32(x), lo = tf32(x - hi) of ``_mma_operand(coeffs)`` in
+    float32, each as the product's B operand reads it from shared memory:
+    K-major core matrices of 8 columns x 4 K positions, [position
+    quad][column octet][column][position]."""
+    x = _mma_operand(coeffs.to(torch.float32))
+    hi = _tf32(x.contiguous())
+    lo = _tf32((x - hi).contiguous())
+    n_bins, d8, _ = x.shape
+    # (B, D8, 64) as (b, quad, position, octet, column)
+    #   -> (b, quad, octet, column, position)
+    layout = lambda y: y.reshape(n_bins, d8 // 4, 4, 8, 8).permute(0, 1, 3, 4, 2)
+    return torch.stack([layout(hi), layout(lo)], dim=1).contiguous()
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# (params, W, table, u_bins, B, D, bins per block, t_lo, t_hi, offset,
-#  n_stars, partial, out): kernel 9's table is coeffs_pad, kernel 11's coeffs
+# (params, W, table, u_bins, B, D, bins per block, [walker tiles,] t_lo, t_hi,
+#  offset, n_stars, partial, out): kernel 9's table is coeffs_pad, kernel
+#  11's coeffs_mma
 _ARGTYPES = [_P, _I, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P]
 MODEL_SUFFICIENT = Kernel("model_sufficient_launch", _ARGTYPES)
-MODEL_SUFFICIENT_MMA = Kernel("model_sufficient_mma_launch", _ARGTYPES)
+MODEL_SUFFICIENT_MMA = Kernel("model_sufficient_mma_launch", _ARGTYPES[:7] + [_I]
+                              + _ARGTYPES[7:])
+# (basis, one bin of coeffs_mma, D, out): kernel 11's product alone
+MODEL_SUFFICIENT_MMA_PRODUCT = Kernel("model_sufficient_mma_product_launch",
+                                      [_P, _P, _I, _P])
 # bins per block: each block writes one partial sum per walker over its
 # group of bins, which a second pass adds in group order.  Kernel 9's block
 # is one warp a bin: 4 give a 512-walker half-ensemble 8 x 24 blocks of 4
-# warps; kernel 11 amortises its staging of the walker tile's basis over 8
+# warps.  Kernel 11's block holds its group's split table in shared memory
+# (20 KB a bin at D = 35) and its two warpgroups stream tiles of 64 walkers
+# through it: 4 bins let two blocks share an SM at D <= 40 and fit any D the
+# build allows (<= 96: 192 KB)
 BIN_GROUP = 4
-_MMA_BIN_GROUP = 8
+MMA_BIN_GROUP = 4
+# kernel 11: walkers a tile (wgmma's M) and warpgroups a block (the source's
+# kTile, kWarpgroups); the most tiles a warpgroup walks, and the walker ranges
+# a group aims at (blockIdx.x): 32 ranges a group keep 16384 walkers at
+# 32 x 24 = 768 blocks of two warpgroups of 4 tiles, and give a 512-walker
+# half-ensemble 4 x 24 = 96 blocks of two tiles
+MMA_TILE = 64
+MMA_WARPGROUPS = 2
+MMA_WALKER_TILES = 4
+MMA_RANGES = 32
 
 
 def sufficient_groups(n_bins: int):
@@ -298,8 +388,23 @@ def sufficient_groups(n_bins: int):
     return BIN_GROUP, -(-n_bins // BIN_GROUP)
 
 
-def _launch(kernel, name, stats: ModelSufficientStats, params, table, per_block):
-    """Launch ``kernel`` on ``stats.<table>`` with ``per_block`` bins a block."""
+def mma_groups(n_bins: int):
+    """(bins a block, groups) of kernel 11: a function of the table alone."""
+    return MMA_BIN_GROUP, -(-n_bins // MMA_BIN_GROUP)
+
+
+def mma_walker_tiles(n_walkers: int) -> int:
+    """The tiles of 64 walkers each of kernel 11's warpgroups walks: enough
+    that a group has about ``MMA_RANGES`` walker ranges, at most
+    ``MMA_WALKER_TILES``.  It changes no walker's arithmetic."""
+    n_tiles = -(-n_walkers // MMA_TILE)
+    return max(1, min(MMA_WALKER_TILES, -(-n_tiles // (MMA_WARPGROUPS * MMA_RANGES))))
+
+
+def _launch(kernel, name, stats: ModelSufficientStats, params, table, per_block,
+            *extra):
+    """Launch ``kernel`` on ``stats.<table>`` with ``per_block`` bins a block
+    (and the ``extra`` int arguments after it)."""
     if params.device.type != "cuda":
         raise TypeError(f"{name}: unsupported device {params.device}")
     if params.dim() != 2 or params.shape[1] != 6:
@@ -311,13 +416,16 @@ def _launch(kernel, name, stats: ModelSufficientStats, params, table, per_block)
             raise TypeError(f"{name}: stats.{label}: expected contiguous float32 on "
                             f"{params.device}, got {t.dtype} on {t.device}")
     n_bins, n_coef, n_ch = stats.coeffs.shape
+    d8 = -(-n_coef // 8) * 8
     if n_ch != N_CHANNELS or stats.u_bins.shape != (n_bins,) or n_coef < 2 \
-            or stats.coeffs_pad.shape != (n_bins, n_coef, CHANNELS_PAD):
+            or stats.coeffs_pad.shape != (n_bins, n_coef, CHANNELS_PAD) \
+            or stats.coeffs_mma.shape != (n_bins, 2, d8 // 4, 8, 8, 4):
         raise ValueError(f"{name}: table shape {tuple(stats.coeffs.shape)}, padded "
-                         f"{tuple(stats.coeffs_pad.shape)} and u_bins "
+                         f"{tuple(stats.coeffs_pad.shape)}, split "
+                         f"{tuple(stats.coeffs_mma.shape)} and u_bins "
                          f"{tuple(stats.u_bins.shape)} do not match")
-    if stats.coeffs_pad.data_ptr() % 16:
-        raise ValueError(f"{name}: stats.coeffs_pad must be 16-byte aligned")
+    if getattr(stats, table).data_ptr() % 16:
+        raise ValueError(f"{name}: stats.{table} must be 16-byte aligned")
     # float32 inside whatever the working dtype, as the TPU kernel
     p32 = params.to(torch.float32).contiguous()
     w = p32.shape[0]
@@ -327,7 +435,7 @@ def _launch(kernel, name, stats: ModelSufficientStats, params, table, per_block)
     partial = torch.empty((-(-n_bins // per_block), w), dtype=torch.float32,
                           device=params.device)
     kernel(p32.data_ptr(), w, getattr(stats, table).data_ptr(), stats.u_bins.data_ptr(),
-           n_bins, n_coef, per_block, stats.t_lo, stats.t_hi, stats.offset,
+           n_bins, n_coef, per_block, *extra, stats.t_lo, stats.t_hi, stats.offset,
            stats.n_stars, partial.data_ptr(), out.data_ptr(),
            stream=torch.cuda.current_stream(params.device).cuda_stream)
     return out.to(params.dtype)
@@ -347,11 +455,40 @@ def model_sufficient_lnlike(stats: ModelSufficientStats, params):
 
 
 def model_sufficient_lnlike_mma(stats: ModelSufficientStats, params):
-    """Kernel 9's function with the per-bin (61, D) x (D, walkers) contraction
-    on the tensor cores in 3xTF32 (``csrc/model_sufficient_mma.cu``, kernel
-    11); a CPU tensor takes :meth:`ModelSufficientStats.lnlike`.  No model
-    dispatches it."""
+    """Kernel 9's function with the per-bin (walkers, D) x (D, 61) contraction
+    on the tensor cores (``csrc/model_sufficient_mma.cu``, kernel 11): 3xTF32
+    ``wgmma`` from ``stats.coeffs_mma``, a block holding ``mma_groups(B)``
+    bins in shared memory while its warpgroups walk ``mma_walker_tiles(W)``
+    tiles of 64 walkers each.  A CPU tensor takes
+    :meth:`ModelSufficientStats.lnlike`.  No model dispatches it."""
     if params.device.type == "cpu":
         return stats.lnlike(params)
     return _launch(MODEL_SUFFICIENT_MMA, "model_sufficient_lnlike_mma", stats, params,
-                   "coeffs", _MMA_BIN_GROUP)
+                   "coeffs_mma", mma_groups(stats.coeffs.shape[0])[0],
+                   mma_walker_tiles(params.shape[0]))
+
+
+def model_sufficient_mma_product(stats: ModelSufficientStats, b: int, basis):
+    """Kernel 11's product of one bin alone, for checking its operand layouts:
+    ``basis`` (64, D8) float32 (walkers x orders, in order) against bin ``b``
+    of ``stats.coeffs_mma`` -> (64, 64) moments, column n holding channel
+    ``MMA_COLUMNS[n]`` (zero where that is -1).  A CUDA tensor launches the
+    kernel's product (3xTF32 ``wgmma``; not counted as a launch of kernel
+    11); a CPU tensor takes the float64 product of ``basis`` and the bin's
+    operand (``_mma_operand``)."""
+    n_coef = stats.coeffs.shape[1]
+    d8 = -(-n_coef // 8) * 8
+    if basis.shape != (MMA_TILE, d8):
+        raise ValueError(f"basis must be ({MMA_TILE}, {d8}), got {tuple(basis.shape)}")
+    if basis.device.type == "cpu":
+        return basis.double()[:, mma_orders(d8)] @ _mma_operand(
+            stats.coeffs[b:b + 1].double())[0]
+    table = stats.coeffs_mma[b]
+    if table.device != basis.device or basis.dtype != torch.float32:
+        raise TypeError("model_sufficient_mma_product: float32 basis on the table's device")
+    basis = basis.contiguous()
+    out = torch.empty((MMA_TILE, CHANNELS_PAD), dtype=torch.float32, device=basis.device)
+    MODEL_SUFFICIENT_MMA_PRODUCT(basis.data_ptr(), table.data_ptr(), n_coef,
+                                 out.data_ptr(),
+                                 stream=torch.cuda.current_stream(basis.device).cuda_stream)
+    return out

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Per-pair instructions of the star loops of kernels 1, 3, 6, 8, 12 and
-13, and the inner loops of kernels 9 and 10, read from SASS.
+13, and the inner loops of kernels 9, 10 and 11, read from SASS.
 
 Run from the root of the repository, on a machine with the CUDA toolkit:
 
@@ -17,10 +17,12 @@ MUFU.RSQ count in kernels 1 and 3 (two ``rsqrtf`` a pair, no ``expf``), and
 it prints, per pair, the instructions, the FP32 flops (FFMA x 2 + FMUL +
 FADD) and the MUFU operations by function.  This is what the compiled code
 issues, not what the function needs: ``chip_smoke.PAIR_COST`` counts the
-latter, for the bounds.  For ``model_sufficient_kernel`` and
-``background_lse_kernel`` it prints every innermost loop's instructions by
-op (kernel 9's loop over the Chebyshev order, kernel 10's max and sum
-sweeps).
+latter, for the bounds.  For ``model_sufficient_kernel``,
+``background_lse_kernel`` and ``model_sufficient_mma_kernel`` it prints every
+innermost loop's instructions by op (kernel 9's loop over the Chebyshev
+order, kernel 10's max and sum sweeps, kernel 11's loop over a group's bins:
+its HGMMA, shuffles and the rest of a bin), and for each instantiation of
+kernel 11 its HGMMA, SHFL and local-memory (LDL, STL) instructions in all.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ KERNELS = {"model_lnlike_kernel": ("RSQ", 2), "model_freecenter_kernel": ("RSQ",
            "model_mixture_kernel": ("EX2", 1), "double_model_gb_kernel": ("EX2", 1),
            "constant_gb_v2_kernel": ("EX2", 1), "model_gb_v2_kernel": ("EX2", 1)}
 # kernels whose every innermost loop is listed by op
-LOOP_KERNELS = ("model_sufficient_kernel", "background_lse_kernel")
+LOOP_KERNELS = ("model_sufficient_kernel", "background_lse_kernel",
+                "model_sufficient_mma_kernel")
+# kernels whose whole function's count of these ops is listed
+TOTAL_KERNELS = {"model_sufficient_mma_kernel": ("HGMMA", "SHFL", "LDL", "STL")}
 
 
 def _instructions(block):
@@ -80,6 +85,23 @@ def loop_histograms(sass: str, kernels=LOOP_KERNELS) -> list[str]:
     return lines
 
 
+def function_totals(sass: str, kernels=TOTAL_KERNELS) -> list[str]:
+    """For each instantiation of ``kernels``, its count of each listed op in
+    the whole function (kernel 11: HGMMA, shuffles, local memory)."""
+    lines = []
+    for block in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0]
+        kernel = next((k for k in kernels if k in name), None)
+        if kernel is None:
+            continue
+        ops = Counter(o for _, o, _ in _instructions(block))
+        template = re.search(r"ILi(\d+)E", name)
+        tag = f"{kernel}<{template.group(1)}>" if template else kernel
+        lines.append(f"{tag}: {sum(ops.values())} instructions, "
+                     + ", ".join(f"{o} {ops[o]}" for o in kernels[kernel]))
+    return lines
+
+
 def star_loop_counts(sass: str) -> list[str]:
     """One line per kernel instantiation found in the text of ``cuobjdump
     -sass``."""
@@ -119,7 +141,7 @@ def main() -> int:
     cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(info.path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    lines = star_loop_counts(sass) + loop_histograms(sass)
+    lines = star_loop_counts(sass) + loop_histograms(sass) + function_totals(sass)
     for line in lines:
         print(line)
     return 0 if lines else 1

@@ -245,14 +245,15 @@ def test_padded_width_is_the_sources():
                          ids=lambda k: k.symbol)
 def test_launcher_signature_matches_argtypes(kernel):
     """Kernel 9's C launcher (its table now the padded one) and kernel 11's
-    against their Kernel's argtypes, read from the sources: the same list."""
+    (its table the split one) against their Kernel's argtypes, read from the
+    sources: the same list."""
     src = "".join(p.read_text() for p in CSRC.glob("model_sufficient*.cu"))
     args = re.search(rf'extern "C" int {kernel.symbol}\(([^)]*)\)', src).group(1)
     names = [" ".join(a.split()) for a in args.split(",")]
     types = [ctypes.c_void_p if "*" in a else
              {"int": ctypes.c_int, "float": ctypes.c_float}[a.split()[-2]] for a in names]
     assert types == kernel.argtypes
-    table = "coeffs_pad" if kernel is MODEL_SUFFICIENT else "coeffs"
+    table = "coeffs_pad" if kernel is MODEL_SUFFICIENT else "coeffs_mma"
     assert names[2] == f"const float* {table}"
 
 
