@@ -73,7 +73,27 @@ calls, and fails (non-zero exit) if any phase does:
     recovery of the truth;
 27. the tier crossover: kernel 1 and kernel 9 on one 16384-star catalog
     (path H's mock at the star count where auto dispatch takes the binned
-    tier) at 512 walkers, each held to the exact star sum and timed.
+    tier) at 512 walkers, each held to the exact star sum and timed;
+28. the native host library (``native/mcmcd_native.cpp`` through
+    ``mcmc_dynamics_tpu_torch/native.py``): it builds with g++, its radial
+    binning equals the NumPy branch on the omega Cen radii and on path B's
+    mock's, and a catalog cache round trip returns the same columns;
+29. main path I1, the reference's production binned workload:
+    ``pipelines.fit_radial_bins`` with ConstantFit's default parameters on
+    the omega Cen catalog (400 stars, 0.05 dex a bin; 64 walkers x 300
+    steps, every bin's ensemble in one step loop), no kernel (the sufficient
+    tables in plain torch, as in the JAX package): set-up, best of 3 timed
+    runs, each bin's sigma_max and v_sys medians inside the JAX package's
+    bands (``chip_smoke_binned_reference.json``, from
+    ``chip_smoke_reference.py``);
+30. main path I2, the same pipeline on path B's 1e5-star mock, where the
+    bins are many and uneven: as I1, and the bucketed chains equal a run
+    with every bin in one bucket, bit for bit;
+31. main path J, convergence and the new moves: A's recipe through
+    ``sample_to_convergence`` with a DE/snooker mixture (kernel 1), capped at
+    twice the steps the JAX package needs there; goldens after discarding
+    twice the largest tau, ``predict_fields`` on a 32 x 32 grid and
+    ``profiling.benchmark_lnprob`` at 1024 walkers.
 
 The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
@@ -1570,6 +1590,205 @@ def shape_label(row):
     return f"{row['W']} x {row['N']}" if "N" in row else f"{row['W']} walkers"
 
 
+# ---------------------------------------------------------- binned pipeline, convergence
+# paths I1 and I2: the reference's production binned workload (bin/run.py:146-259)
+# at bench.py's binned-pipeline configuration
+BINNED_RUN = dict(nstars=400, dlogr=0.05, n_walkers=64, n_steps=300, seed=0)
+BINNED_BURN = 150
+BINNED_KEYS = ("sigma_max", "v_sys")
+BINNED_REFERENCE = REPO / "chip_smoke_binned_reference.json"
+# path J: A's recipe sampled to convergence with a DE/snooker mixture; the JAX
+# package needs J_JAX_STEPS steps there (chip_smoke_reference.py J, float64,
+# CPU), and the port is given twice that
+J_MOVE = (("de", 0.8), ("snooker", 0.2))
+J_CHECK_EVERY = 500
+J_JAX_STEPS = 12_000
+J_MAX_STEPS = 2 * J_JAX_STEPS
+
+
+def binned_catalog(path):
+    """Path I1's catalog (the omega Cen recipe's) or I2's (path B's 1e5-star
+    mock) as ``{name: (values, unit)}`` numpy columns, and its centre (deg)."""
+    if path == "I1":
+        cfg = json.loads(RECIPE.read_text())
+        table = read_catalog(cfg).data
+        columns = {name: (table.value(name), table.units[name].name)
+                   for name in ("ra", "dec", "v", "verr")}
+        return columns, (cfg["parameters"]["ra_center"]["value"],
+                         cfg["parameters"]["dec_center"]["value"])
+    columns, truth = mock_catalog(n_stars=100_000, seed=5)
+    return columns, (truth["ra_center"], truth["dec_center"])
+
+
+def binned_bands(result):
+    """Per-bin medians of BINNED_KEYS after BINNED_BURN steps, each with its
+    band: the median +- half its 16-84 % half-width."""
+    table = result.summary(n_burn=BINNED_BURN)
+    out = {}
+    for key in BINNED_KEYS:
+        med = np.asarray(table.value(f"{key} median"), np.float64)
+        half = 0.5 * (np.asarray(table.value(f"{key} high"), np.float64)
+                      + np.asarray(table.value(f"{key} low"), np.float64))
+        out[key] = {"median": med.tolist(), "lo": (med - 0.5 * half).tolist(),
+                    "hi": (med + 0.5 * half).tolist()}
+    return out
+
+
+def check_binned(label, result, reference):
+    """Each bin's medians inside the JAX package's bands; returns the largest
+    offset from the JAX median in units of the band's half-width."""
+    got = binned_bands(result)
+    worst = 0.0
+    if len(got["v_sys"]["median"]) != len(reference["v_sys"]["median"]):
+        raise AssertionError(f"path {label}: {len(got['v_sys']['median'])} bins, "
+                             f"the JAX package made {len(reference['v_sys']['median'])}")
+    for key in BINNED_KEYS:
+        ref = reference[key]
+        for b, value in enumerate(got[key]["median"]):
+            lo, hi, med = ref["lo"][b], ref["hi"][b], ref["median"][b]
+            if not lo <= value <= hi:
+                raise AssertionError(f"path {label}: bin {b} {key} = {value:.5g} "
+                                     f"outside the JAX band [{lo:.5g}, {hi:.5g}]")
+            worst = max(worst, abs(value - med) / (0.5 * (hi - lo)))
+    return worst
+
+
+def phase_native():
+    """The native host library: it builds, its radial binning equals the
+    NumPy branch on the omega Cen radii and on path B's mock's, and a catalog
+    cache round trip returns the same columns; returns seconds per binning."""
+    from mcmc_dynamics_tpu_torch import native
+    from mcmc_dynamics_tpu_torch.utils import data as data_mod
+
+    if not native.native_available():
+        raise AssertionError("the native library did not build (g++)")
+    out = {}
+    for path in ("I1", "I2"):
+        columns, centre = binned_catalog(path)
+        r = port_reader(columns).compute_distances(*centre).value
+        t0 = time.perf_counter()
+        got = native.radial_bins(r, BINNED_RUN["nstars"], BINNED_RUN["dlogr"])
+        out[path] = time.perf_counter() - t0
+        saved = native.radial_bins
+        native.radial_bins = lambda *a, **k: None       # the NumPy branch
+        try:
+            t0 = time.perf_counter()
+            want = data_mod.radial_bin_numbers(r, BINNED_RUN["nstars"],
+                                               BINNED_RUN["dlogr"])
+            out[path + " numpy"] = time.perf_counter() - t0
+        finally:
+            native.radial_bins = saved
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native radial bins differ from NumPy's ({path})")
+        out[path + " bins"] = int(got.max()) + 1
+    columns, _ = binned_catalog("I1")
+    reader = port_reader(columns)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "omega_cen.mcmd"
+        if not reader.to_cache(path):
+            raise AssertionError("to_cache failed")
+        back = type(reader).from_cache(
+            path, units={name: unit for name, (_, unit) in columns.items()})
+    for name, (values, _) in columns.items():
+        if not np.array_equal(back.data.value(name), values):
+            raise AssertionError(f"cache round trip changed column {name}")
+    return out
+
+
+def phase_binned(device, path, reference):
+    """Main path I1 or I2: fit_radial_bins with ConstantFit's default
+    parameters (the sufficient tables in plain torch); returns its numbers."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch import pipelines
+
+    columns, (ra_c, dec_c) = binned_catalog(path)
+
+    def run(n_steps=BINNED_RUN["n_steps"]):
+        return pipelines.fit_radial_bins(port_reader(columns), ra_c, dec_c,
+                                         device=device,
+                                         **dict(BINNED_RUN, n_steps=n_steps))
+
+    run()                                                   # warm-up
+    setup_s = best = math.inf
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(n_steps=0)
+        torch.cuda.synchronize()
+        setup_s = min(setup_s, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    n_steps, n_walkers = BINNED_RUN["n_steps"], BINNED_RUN["n_walkers"]
+    worst = check_binned(path, res, reference)
+    out = dict(bins=res.n_bins, stars=int(res.n_per_bin.sum()),
+               per_bin=(int(res.n_per_bin.min()), int(res.n_per_bin.max())),
+               buckets=len(pipelines._size_buckets(res.n_per_bin)),
+               setup_s=setup_s, wall_s=best,
+               ms_per_step=(best - setup_s) / n_steps * 1e3,
+               evals_per_s=res.n_bins * n_walkers * n_steps / best,
+               acceptance=float(np.mean(np.diff(res.chains, axis=2).any(axis=-1))),
+               worst=worst, result=res)
+    if path == "I2":
+        # the same run with every bin in one (B, N_max) block: the bucketed
+        # chains must be these, bit for bit
+        saved = pipelines._size_buckets
+        pipelines._size_buckets = lambda counts, **kw: [np.arange(len(counts))]
+        try:
+            single = run()
+        finally:
+            pipelines._size_buckets = saved
+        if not (np.array_equal(single.chains, res.chains)
+                and np.array_equal(single.log_probs, res.log_probs)):
+            raise AssertionError("path I2: bucketed chains differ from one bucket's")
+    return out
+
+
+def phase_convergence(device):
+    """Main path J: A's recipe through sample_to_convergence with the
+    DE/snooker mixture (kernel 1), goldens after discarding twice the largest
+    tau, predict_fields on a 32 x 32 grid and benchmark_lnprob."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.profiling import benchmark_lnprob
+
+    fit, _ = load_recipe(device)
+    if fit.lnprob_tier() != "direct":
+        raise AssertionError(f"recipe tier {fit.lnprob_tier()}, expected direct")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = fit.sample_to_convergence(n_walkers=64, move=J_MOVE,
+                                    check_every=J_CHECK_EVERY, max_steps=J_MAX_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not run.converged:
+        raise AssertionError(f"path J did not converge in {J_MAX_STEPS} steps "
+                             f"(tau {np.round(run.tau, 1).tolist()})")
+    discard = int(2 * np.max(run.tau))
+    values = check_goldens(run.chain, discard,
+                           json.loads(GOLDENS.read_text())["omega_cen_fixed"])
+    ra_c, dec_c = fit.parameters["ra_center"].value, fit.parameters["dec_center"].value
+    ra, dec = np.meshgrid(ra_c + np.linspace(-0.2, 0.2, 32) / math.cos(math.radians(dec_c)),
+                          dec_c + np.linspace(-0.2, 0.2, 32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = fit.predict_fields(run.chain, discard, ra.ravel(), dec.ravel())
+    predict_s = time.perf_counter() - t0
+    for name in ("v_los", "sigma_los", "sigma_los_upper_1s"):
+        col = fields.value(name)
+        if col.shape != (1024,) or not np.isfinite(col).all():
+            raise AssertionError(f"predict_fields {name}: shape {col.shape} or "
+                                 "not finite")
+    bench = benchmark_lnprob(fit, n_walkers=1024, n_steps=50)
+    steps = run.chain.shape[1]
+    return dict(steps=steps, seconds=seconds, ms_per_step=seconds / steps * 1e3,
+                tau=np.round(run.tau, 2).tolist(), discard=discard,
+                acceptance=float(np.mean(run.acceptance_fraction)), medians=values,
+                predict_s=predict_s, bench=bench, fit=fit)
+
+
 # ----------------------------------------------------------------------------- main
 def main(argv=None) -> int:
     import torch
@@ -1803,6 +2022,41 @@ def main(argv=None) -> int:
           f"float64 {H_REFERENCE}) | launches {path_h['launches']}")
     phase_crossover(device)
 
+    nat = phase_native()
+    print(f"phase 28 native host library: built | radial bins of the omega Cen "
+          f"catalog ({nat['I1 bins']} bins) and path B's mock ({nat['I2 bins']} bins) "
+          f"equal NumPy's | native {nat['I1'] * 1e3:.3f} / {nat['I2'] * 1e3:.3f} ms, "
+          f"NumPy {nat['I1 numpy'] * 1e3:.3f} / {nat['I2 numpy'] * 1e3:.3f} ms | "
+          f"catalog cache round trip ok")
+    binned_reference = json.loads(BINNED_REFERENCE.read_text())
+    binned = {}
+    for phase, path, label in ((29, "I1", "omega Cen catalog"),
+                               (30, "I2", "path B's 1e5-star mock")):
+        out = binned[path] = drive(path, lambda: phase_binned(
+            device, path, binned_reference[path]), set())
+        print(f"phase {phase} main path {path} (fit_radial_bins, ConstantFit's "
+              f"sufficient tables, {label}): {out['stars']} stars in {out['bins']} "
+              f"bins of {out['per_bin'][0]}-{out['per_bin'][1]} stars, "
+              f"{out['buckets']} size bucket(s), {BINNED_RUN['n_walkers']} walkers x "
+              f"{BINNED_RUN['n_steps']} steps | set-up {out['setup_s']:.4f} s | best "
+              f"of 3 {out['wall_s']:.4f} s | {out['ms_per_step']:.4f} ms/step | "
+              f"{out['evals_per_s']:.4g} bin x walker lnprob evals/s (set-up "
+              f"included) | moves taken {out['acceptance']:.3f} | sigma_max, v_sys "
+              f"medians in the JAX bands (worst {out['worst']:.3f} of a half-band)"
+              + (" | bucketed chains equal one bucket's bit for bit"
+                 if path == "I2" else "") + f" | launches {out['launches']}")
+    path_j = drive("J", lambda: phase_convergence(device), {"model_lnlike"})
+    print(f"phase 31 main path J (omega Cen recipe, sample_to_convergence, move "
+          f"{J_MOVE}, kernel 1): converged after {path_j['steps']} steps (JAX "
+          f"float64: {J_JAX_STEPS}; cap {J_MAX_STEPS}) | tau {path_j['tau']} | "
+          f"{path_j['seconds']:.2f} s, {path_j['ms_per_step']:.4f} ms/step | "
+          f"acceptance {path_j['acceptance']:.3f} | goldens ok after discarding "
+          f"{path_j['discard']} "
+          f"{json.dumps({k: round(float(v), 4) for k, v in path_j['medians'].items()})}"
+          f" | predict_fields 32 x 32 {path_j['predict_s']:.4f} s, finite | "
+          f"benchmark_lnprob {json.dumps(path_j['bench'])} | launches "
+          f"{path_j['launches']}")
+
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
@@ -1829,6 +2083,19 @@ def main(argv=None) -> int:
             fit(n_walkers=n_walkers, n_steps=20, pos=pos, prefix=None)   # warm-up
             profile_path(label, lambda: fit(n_walkers=n_walkers, n_steps=100,
                                             pos=pos, prefix=None), 100, names)
+        fit_j = path_j["fit"]
+        pos = fit_j.get_initials(64)
+        profile_path("J", lambda: fit_j(n_walkers=64, n_steps=100, pos=pos,
+                                        move=J_MOVE, prefix=None), 100,
+                     ["model_lnlike_kernel", "sum_chunks_kernel<1>"])
+        from mcmc_dynamics_tpu_torch import pipelines
+
+        for path in ("I1", "I2"):
+            columns, (ra_c, dec_c) = binned_catalog(path)
+            profile_path(path + " (set-up included)",
+                         lambda: pipelines.fit_radial_bins(
+                             port_reader(columns), ra_c, dec_c, device=device,
+                             **BINNED_RUN), BINNED_RUN["n_steps"], [])
 
     # (name, source, TPU kernel, row at the large shape (16384 walkers; the
     # KDE 20480 targets), rows at the main paths' shapes: (path, row), path

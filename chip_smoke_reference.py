@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""The JAX package's answers on chip_smoke.py's paths D, E1, E2, F1, F2, G1, G2 and H.
+"""The JAX package's answers on chip_smoke.py's paths D, E1, E2, F1, F2, G1, G2, H,
+I1, I2 and J.
 
 Run from the root of the repository, on the CPU (float64):
 
     python3 chip_smoke_reference.py            # every path
     python3 chip_smoke_reference.py F1 G1 H    # some of them
+    python3 chip_smoke_reference.py I1 I2 --write   # also rewrite the bins' bands
 
 It sets up each path as ``chip_smoke.py`` does (the same catalog, priors,
 initial walkers, walker and step counts) through the JAX package
@@ -18,7 +20,14 @@ the truth of the contaminated catalog, paths F1 (ModelFitGB), F2
 path G1 (DoubleModelFit on the omega Cen catalog) against the omega Cen
 goldens, and path H (ModelFit on the 1e5-star mock with unbounded a and
 r_peak priors: the binned tier, 192 bins in float64) against the mock's
-truth.  This is where those bounds come from.  The SingleStars background
+truth, paths I1 and I2 (``fit_radial_bins``, ConstantFit in every radial bin
+of the omega Cen catalog and of path B's 1e5-star mock) as each bin's
+sigma_max and v_sys medians with their bands (the median +- half the 16-84 %
+half-width; ``--write`` stores them in ``chip_smoke_binned_reference.json``,
+which ``chip_smoke.py`` reads), and path J (the omega Cen fixed-centre recipe
+through ``sample_to_convergence`` with chip_smoke's DE/snooker mixture) as
+the steps the JAX package needs to converge (``chip_smoke.J_JAX_STEPS``).
+This is where those bounds come from.  The SingleStars background
 is evaluated by the port's float64 plain version of the KDE on the CPU (the
 same function; the JAX package's own numpy path would hold a 1.3 GB matrix at
 this size).
@@ -189,8 +198,54 @@ def path_h():
            truth_check(("v_sys", "sigma_max"), truth))
 
 
+def path_binned(which):
+    """Paths I1 and I2 through the JAX package's fit_radial_bins; returns the
+    bins' bands."""
+    from mcmc_dynamics_tpu.pipelines import fit_radial_bins
+
+    columns, (ra_c, dec_c) = chip_smoke.binned_catalog(which)
+    t0 = time.perf_counter()
+    res = fit_radial_bins(jax_reader(columns), ra_c, dec_c, **chip_smoke.BINNED_RUN)
+    seconds = time.perf_counter() - t0
+    bands = chip_smoke.binned_bands(res)
+    half = {k: float(np.max(np.subtract(bands[k]["hi"], bands[k]["lo"])) / 2)
+            for k in chip_smoke.BINNED_KEYS}
+    print(f"path {which} (JAX, float64, CPU): {res.n_bins} bins, stars per bin "
+          f"{int(res.n_per_bin.min())}-{int(res.n_per_bin.max())} | {seconds:.1f} s | "
+          f"sigma_max medians {np.round(bands['sigma_max']['median'], 3).tolist()} | "
+          f"v_sys medians {np.round(bands['v_sys']['median'], 3).tolist()} | widest "
+          f"band half-widths {json.dumps({k: round(v, 4) for k, v in half.items()})}")
+    return bands
+
+
+def path_j():
+    """Path J through the JAX package: the steps sample_to_convergence needs."""
+    from mcmc_dynamics_tpu.models import ModelFit
+
+    cfg = json.loads(chip_smoke.RECIPE.read_text())
+    params = ModelFit.default_parameters()
+    for name, spec in cfg["parameters"].items():
+        params[name].set(**spec)
+    fit = ModelFit(jax_reader(recipe_columns(cfg)), parameters=params,
+                   seed=cfg["sampling"]["seed"])
+    t0 = time.perf_counter()
+    run = fit.sample_to_convergence(n_walkers=64, move=chip_smoke.J_MOVE,
+                                    check_every=chip_smoke.J_CHECK_EVERY,
+                                    max_steps=100_000)
+    chain = np.asarray(run.chain)
+    discard = int(2 * np.max(run.tau))
+    values = chip_smoke.check_goldens(chain, discard, json.loads(
+        chip_smoke.GOLDENS.read_text())["omega_cen_fixed"])
+    print(f"path J (JAX, float64, CPU): converged {run.converged} after "
+          f"{chain.shape[1]} steps | tau {np.round(run.tau, 2).tolist()} | "
+          f"acceptance {float(np.mean(run.acceptance_fraction)):.3f} | "
+          f"{time.perf_counter() - t0:.1f} s | goldens ok after discarding "
+          f"{discard} {json.dumps({k: round(float(v), 4) for k, v in values.items()})}")
+
+
 def main():
-    which = sys.argv[1:] or ["D", "E1", "E2", "F1", "F2", "G1", "G2", "H"]
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    which = args or ["D", "E1", "E2", "F1", "F2", "G1", "G2", "H", "I1", "I2", "J"]
     if "D" in which:
         path_d()
     if {"E1", "E2"} & set(which):
@@ -208,6 +263,15 @@ def main():
                 path_radial(path, columns, field_catalog, truth)
     if "H" in which:
         path_h()
+    bands = {path: path_binned(path) for path in ("I1", "I2") if path in which}
+    if "--write" in sys.argv[1:]:
+        stored = (json.loads(chip_smoke.BINNED_REFERENCE.read_text())
+                  if chip_smoke.BINNED_REFERENCE.exists() else {})
+        stored.update(bands)
+        chip_smoke.BINNED_REFERENCE.write_text(json.dumps(stored, indent=1) + "\n")
+        print(f"wrote {chip_smoke.BINNED_REFERENCE.name}: {sorted(stored)}")
+    if "J" in which:
+        path_j()
     return 0
 
 

@@ -5,7 +5,9 @@ names, its parameter files, its sampler semantics and its ``.npz`` checkpoint
 layout, and runs the same models on an NVIDIA GPU (Hopper, ``sm_90a``) through
 kernels written by hand in CUDA C++ (``csrc/``).
 
-What runs today, sampled by the stretch-move ensemble:
+What runs today, sampled by the ensemble's stretch, DE and snooker moves
+(or a weighted mixture of them), to a fixed length or to certified
+convergence (``Runner.sample_to_convergence``):
 
 * the global :class:`~.models.ModelFit` (Lynden-Bell rotation + Plummer
   dispersion) with a fixed centre (the direct walker x star kernel, the
@@ -20,7 +22,11 @@ What runs today, sampled by the stretch-move ensemble:
   the fixed-background mixture kernel, or plain torch for a sampled centre)
   and :class:`~.models.ConstantFitGB` (the density-mixture kernel);
 * the field-star backgrounds :class:`~.background.Gaussian` and
-  :class:`~.background.SingleStars` (the log-sum-exp KDE kernel).
+  :class:`~.background.SingleStars` (the log-sum-exp KDE kernel);
+* the binned production pipeline :func:`~.pipelines.fit_radial_bins` (every
+  radial bin's ensemble in one loop on the sampler's batch axis), with the
+  native radial binning and catalog cache (:mod:`.native`) and the mock-data
+  harness ``python -m mcmc_dynamics_tpu_torch.cli.run_tests``.
 
 The port imports nothing of the JAX package, not even its modules that do not
 load JAX: units, ``Parameter``/``Parameters``, the expression validator,

@@ -1,20 +1,23 @@
 """Model base class: host shell compiling data + parameters into a batched lnprob.
 
-Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (the subset the ModelFit,
-ConstantFit and DoubleModelFit families need).  Observables are converted to
-internal units on the host in float64 and then placed on the model's device in
-its working dtype.
-A batched lnprob maps a (W, K) walker block to (W,); the sampler runs it on
-half-ensembles.  Checkpoints are ``.npz`` files with the reference's keys, so
-the JAX package reads the chains this package writes.
+Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (without the tempered and
+HMC samplers and the multi-device paths, listed in ROADMAP.md).  Observables
+are converted to internal units on the host in float64 and then placed on the
+model's device in its working dtype.  A batched lnprob maps a (W, K) walker
+block to (W,); the sampler runs it on half-ensembles.  Checkpoints are
+``.npz`` files with the reference's keys, so the JAX package reads the chains
+this package writes.  The plotting methods import matplotlib when they draw,
+and only then.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
 import pathlib
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -24,8 +27,9 @@ from .. import default_dtype, resolve_device
 from .. import units as u
 from ..expressions import compile_torch
 from ..parameters import CompiledParameters, Parameters
-from ..sampler.stretch import (EnsembleState, check_move, init_state,
-                               make_generator, run_ensemble)
+from ..sampler.diagnostics import AutocorrError, autocorr_time
+from ..sampler.stretch import (EnsembleState, init_state, make_generator,
+                               run_ensemble)
 from ..utils.coordinates import get_amplitude_and_angle, xy_offset_rad
 from ..utils.data import DataReader
 from ..utils.table import Table
@@ -156,6 +160,10 @@ class Runner:
     @property
     def n_fitted_parameters(self) -> int:
         return self.compiled.n_free
+
+    @property
+    def labels(self):
+        return [self.parameters[n].plot_label() for n in self.fitted_parameters]
 
     # ------------------------------------------------------------------ batched pieces
     def scaled_values(self, theta: torch.Tensor) -> Dict[str, object]:
@@ -380,22 +388,32 @@ class Runner:
     # ------------------------------------------------------------------ fitting
     def __call__(self, n_walkers: int = 100, n_steps: int = 500, n_burn: int = 100,
                  n_out: Optional[int] = None, pos=None, a: float = 2.0,
-                 thin: int = 1, move: str = "stretch", seed: Optional[int] = None,
+                 thin: int = 1, move="stretch", seed: Optional[int] = None,
                  plot: bool = False, prefix: Optional[str] = "sampler",
-                 state: Optional[EnsembleState] = None) -> "SamplerResult":
+                 true_values=None, state: Optional[EnsembleState] = None,
+                 telemetry=None, n_threads: Optional[int] = None,
+                 **kwargs) -> "SamplerResult":
         """Run the MCMC analysis; returns a :class:`SamplerResult`.
 
         The reference's signature (``n_burn`` is accepted and not used while
-        sampling).  With ``n_out`` the run goes in chunks of ``n_out`` steps
-        and, with a ``prefix``, checkpoints ``{prefix}_chain.npz`` after each.
-        ``state=`` (e.g. from :meth:`load_state`) continues a run bit for bit.
+        sampling; ``n_threads`` is accepted and ignored).  ``move``: a move
+        or a weighted mixture (:func:`~..sampler.stretch.normalize_move`).
+        With ``n_out`` the run goes in chunks of ``n_out`` steps and, with a
+        ``prefix``, checkpoints ``{prefix}_chain.npz`` after each and at the
+        end.  ``state=`` (e.g. from :meth:`load_state`) continues a run bit
+        for bit.  ``telemetry`` (a
+        :class:`~..profiling.SamplerTelemetry`) records each chunk's wall
+        time; ``plot=True`` draws ``{prefix}_chains.png`` (a failed plot is
+        logged, never raised).
         """
-        del n_burn
-        check_move(move)
-        if plot:
+        del n_burn, n_threads
+        mesh = kwargs.pop("mesh", None)
+        if mesh is not None:
             raise NotImplementedError(
-                "Plotting is not ported to torch yet (ROADMAP.md); run with "
-                "plot=False and plot the returned chain.")
+                "mesh=: the multi-device samplers are not ported to torch yet "
+                "(ROADMAP.md, queue 1, item 9).")
+        if kwargs:
+            logger.warning("Ignoring unsupported keyword arguments: %s", list(kwargs))
         if n_steps <= 0:
             raise ValueError("n_steps must be positive.")
         lnprob = self.batched_lnprob()
@@ -404,6 +422,10 @@ class Runner:
             pos = self._validated_initials(pos, n_walkers)
             gen = make_generator(self.seed if seed is None else seed, self.device)
             state = init_state(lnprob, self._to_device(pos), gen)
+        else:
+            n_walkers = state.coords.shape[0]
+        if telemetry is not None:
+            telemetry.n_walkers = n_walkers
 
         chain_parts, lnp_parts = [], []
         chunk = n_out if n_out else n_steps
@@ -412,7 +434,12 @@ class Runner:
         step0 = state.step
         while done < n_steps:
             steps = min(chunk, n_steps - done)
-            result = run_ensemble(lnprob, state, n_steps=steps, a=a, thin=thin)
+            with (telemetry.chunk(steps) if telemetry is not None
+                  else contextlib.nullcontext()):
+                result = run_ensemble(lnprob, state, n_steps=steps, a=a, thin=thin,
+                                      move=move)
+                if telemetry is not None:
+                    result.final.log_prob.cpu()    # waits for the device
             chain_parts.append(result.chain.cpu().numpy())
             lnp_parts.append(result.log_prob.cpu().numpy())
             state = result.final
@@ -427,11 +454,116 @@ class Runner:
 
         n_done = max(state.step - step0, 1)
         acceptance = ((state.accepted - accepted0).cpu().numpy() / n_done)
-        return SamplerResult(chain=np.concatenate(chain_parts, axis=1),
-                             lnprobability=np.concatenate(lnp_parts, axis=1),
-                             final_state=state, acceptance_fraction=acceptance)
+        sampler = SamplerResult(chain=np.concatenate(chain_parts, axis=1),
+                                lnprobability=np.concatenate(lnp_parts, axis=1),
+                                final_state=state, acceptance_fraction=acceptance)
+        if prefix is not None and n_out:
+            self.save_current_status(sampler, prefix=prefix)
+        if plot:
+            try:
+                from ..utils.plots import plot_chain
+                plot_chain(sampler.chain, labels=self.labels, true_values=true_values,
+                           filename=f"{prefix}_chains.png" if prefix else None)
+            except Exception as err:  # plotting must never kill a fit
+                logger.warning("Chain plotting failed: %s", err)
+        return sampler
+
+    def sample_to_convergence(self, n_walkers: int = 100,
+                              max_steps: int = 50_000,
+                              check_every: int = 500,
+                              tau_factor: float = 50.0,
+                              rel_change: float = 0.02,
+                              pos=None, a: float = 2.0, move="stretch",
+                              seed: Optional[int] = None, state=None,
+                              prefix: Optional[str] = None, telemetry=None,
+                              **kwargs) -> "SamplerResult":
+        """Sample in chunks of ``check_every`` steps until the chain certifies
+        its own convergence: it is longer than ``tau_factor`` integrated
+        autocorrelation times for every parameter AND the tau estimate moved
+        by less than ``rel_change`` between checks.  Gives up at
+        ``max_steps``.
+
+        Returns a :class:`SamplerResult` with two extra attributes: ``tau``
+        (the final per-parameter estimate) and ``converged`` (bool).
+        """
+        if check_every <= 0:
+            raise ValueError("check_every must be positive.")
+        if max_steps <= 0:
+            raise ValueError("max_steps must be positive.")
+        chain_parts, lnp_parts = [], []
+        done = 0
+        accepted_total = None
+        tau_prev = None
+        converged = False
+        while done < max_steps:
+            steps = min(check_every, max_steps - done)
+            result = self(n_walkers=n_walkers, n_steps=steps, n_burn=0,
+                          pos=pos, a=a, move=move, seed=seed, state=state,
+                          prefix=None, plot=False, telemetry=telemetry,
+                          **kwargs)
+            pos = None  # only the first chunk initialises walkers
+            state = result.final_state
+            chain_parts.append(result.chain)
+            lnp_parts.append(result.lnprobability)
+            # acceptance over the whole run, not the last chunk
+            chunk_acc = np.asarray(result.acceptance_fraction) * steps
+            accepted_total = (chunk_acc if accepted_total is None
+                              else accepted_total + chunk_acc)
+            done += steps
+
+            chain = np.concatenate(chain_parts, axis=1)
+            tau = autocorr_time(chain)
+            tau_max = float(np.max(tau))
+            stable = (tau_prev is not None
+                      and np.all(np.abs(tau - tau_prev)
+                                 <= rel_change * np.maximum(tau, 1.0)))
+            logger.info("step %6d  max tau = %8.1f  (need > %0.0f tau%s)",
+                        done, tau_max, tau_factor,
+                        ", stable" if stable else "")
+            if prefix is not None:
+                self.save_current_status_arrays(
+                    chain, np.concatenate(lnp_parts, axis=1), state,
+                    prefix=prefix)
+            # tau_max > 0: a frozen chain (every proposal rejected) gives
+            # tau = -1, which must never certify convergence
+            if tau_max > 0 and done > tau_factor * tau_max and stable:
+                converged = True
+                break
+            tau_prev = tau
+
+        sampler = SamplerResult(
+            chain=np.concatenate(chain_parts, axis=1),
+            lnprobability=np.concatenate(lnp_parts, axis=1),
+            final_state=state,
+            acceptance_fraction=accepted_total / done)
+        sampler.tau = tau
+        sampler.converged = converged
+        if not converged:
+            logger.warning(
+                "sample_to_convergence stopped at max_steps=%d without "
+                "certifying convergence (max tau = %.1f).", max_steps, tau_max)
+        return sampler
 
     # ------------------------------------------------------------------ persistence
+    @staticmethod
+    def save_chain(sampler, filename: str = "samplerchain.npz"):
+        """Deprecated alias of :meth:`save_current_status` (reference
+        runner.py:445-455)."""
+        warnings.warn("Runner.save_chain() is deprecated. "
+                      "Use Runner.save_current_status() instead.",
+                      DeprecationWarning)
+        # splitext, not split('.'): a dotted directory must not truncate the path
+        prefix = os.path.splitext(filename)[0]
+        if prefix.endswith("chain"):
+            prefix = prefix[:-5].rstrip("_") or "sampler"
+        Runner.save_current_status(sampler, prefix=prefix)
+
+    @staticmethod
+    def save_current_status(sampler, prefix: str = "sampler"):
+        """``{prefix}_chain.npz`` from a :class:`SamplerResult`."""
+        Runner.save_current_status_arrays(sampler.chain, sampler.lnprobability,
+                                          sampler.final_state, prefix=prefix)
+
     @staticmethod
     def save_current_status_arrays(chain, lnprob, state: EnsembleState,
                                    prefix: str = "sampler"):
@@ -479,6 +611,11 @@ class Runner:
         with np.load(path) as f:
             return f["chain"]
 
+    @staticmethod
+    def read_final_chain(filename: str) -> np.ndarray:
+        """The (W, K) last recorded step of a checkpoint's chain."""
+        return Runner.read_chain(filename)[:, -1, :]
+
     # ------------------------------------------------------------------ posterior
     def convert_to_parameters(self, chain, n_burn: int) -> Dict[str, np.ndarray]:
         """Chain -> flattened posterior samples of every parameter (free,
@@ -518,6 +655,75 @@ class Runner:
                 self.parameters[name].unit)
         return out
 
+    def predict_fields(self, chain, n_burn: int, ra, dec,
+                       n_samples: int = 200, seed: int = 0) -> Table:
+        """Posterior-predictive mean-velocity and dispersion fields at
+        arbitrary sky positions: the model's ``rotation_field`` and
+        ``dispersion_field`` under ``n_samples`` posterior draws (drawn with
+        ``np.random.default_rng(seed)``, as in the reference), evaluated in
+        one batched torch pass over (n_samples, n_positions) on the model's
+        device.  ``ra``/``dec``: Quantities (or plain degrees).  Returns a
+        Table with per-position ``v_los``/``sigma_los`` medians and
+        16/84-percentile bounds."""
+        if not (hasattr(self, "rotation_field")
+                and hasattr(self, "dispersion_field")):
+            raise NotImplementedError(
+                f"{type(self).__name__} does not expose analytic "
+                "rotation/dispersion fields; use create_profiles().")
+        ra_q = ra if isinstance(ra, u.Quantity) else u.Quantity(ra, "deg")
+        dec_q = dec if isinstance(dec, u.Quantity) else u.Quantity(dec, "deg")
+        ra_rad = np.atleast_1d(ra_q.to("rad").value)
+        dec_rad = np.atleast_1d(dec_q.to("rad").value)
+        # fresh data dict (NOT prepare_data: its precomputed offsets belong to
+        # the fitted catalog's positions, and the centre may be a chain column)
+        pdata = {"ra": self._to_device(ra_rad), "dec": self._to_device(dec_rad),
+                 "v": self._to_device(np.zeros(ra_rad.size))}
+
+        chain = np.asarray(chain)
+        flat = chain[:, n_burn:, :].reshape(-1, chain.shape[-1])
+        if flat.shape[0] == 0:
+            raise ValueError(
+                f"n_burn={n_burn} leaves no posterior samples: the chain "
+                f"holds {chain.shape[1]} recorded steps (note recorded steps "
+                "= true steps / thin).")
+        rng = np.random.default_rng(seed)
+        draws = self._to_device(flat[rng.integers(0, flat.shape[0], n_samples)])
+        p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
+             for n, v in self.scaled_values(draws).items()}
+        shape = (n_samples, ra_rad.size)
+        v, s = (torch.broadcast_to(field(p, pdata), shape).cpu().numpy()
+                for field in (self.rotation_field, self.dispersion_field))
+        return self._predictive_table(ra_q, dec_q, v, s)
+
+    @staticmethod
+    def _predictive_table(ra_q, dec_q, v, sigma) -> Table:
+        good = np.isfinite(v).all(axis=1) & np.isfinite(sigma).all(axis=1)
+        if not good.any():
+            raise ValueError(
+                "Every posterior draw produced non-finite predicted fields — "
+                "the sampled region of parameter space is invalid for this "
+                "model (check bounds / burn-in).")
+        v, sigma = v[good], sigma[good]
+        pv = np.percentile(v, [50, 16, 84], axis=0)
+        ps = np.percentile(sigma, [50, 16, 84], axis=0)
+        table = Table({"ra": ra_q, "dec": dec_q})
+        for key, arr in (("v_los", pv), ("sigma_los", ps)):
+            table[key] = u.Quantity(arr[0], "km/s")
+            table[f"{key}_lower_1s"] = u.Quantity(arr[1], "km/s")
+            table[f"{key}_upper_1s"] = u.Quantity(arr[2], "km/s")
+        return table
+
+    def sample_chain(self, chain, n_burn: int, n_samples: int = 1):
+        """Randomly draw parameter dicts (in declared units) from the chain,
+        with the parameters' own generator seed (as the reference)."""
+        chain = np.asarray(chain)
+        flat = chain[:, n_burn:, :].reshape(-1, chain.shape[-1])
+        rng = np.random.default_rng(self.parameters.rng_seed)
+        idx = rng.integers(0, flat.shape[0], size=n_samples)
+        values = self.compiled.expand(self._to_device(flat[idx]))
+        return [{n: float(v[i]) if torch.is_tensor(v) else float(v)
+                 for n, v in values.items()} for i in range(n_samples)]
+
     def compute_theta_vmax(self, chain, n_burn: int, return_samples: bool = False):
         """Posterior rotation amplitude and angle (circular statistics)."""
         pars = self.convert_to_parameters(chain=chain, n_burn=n_burn)
@@ -532,6 +738,23 @@ class Runner:
         if return_samples:
             return results, v_max, theta, pars.get("sigma_max")
         return results
+
+    # ------------------------------------------------------------------ plotting
+    def plot_chain(self, chain, filename="chains.png", true_values=None,
+                   lnprob=None, figure=None, plot_median=False):
+        """Trace plot of every fitted parameter (``utils.plots.plot_chain``)."""
+        from ..utils.plots import plot_chain
+        return plot_chain(np.asarray(chain), labels=self.labels, filename=filename,
+                          true_values=true_values, lnprob=lnprob, figure=figure,
+                          plot_median=plot_median)
+
+    def create_triangle_plot(self, chain, n_burn: int, filename="corner.png",
+                             **kwargs):
+        """Corner plot of the post-burn-in samples (``utils.plots.corner_plot``)."""
+        from ..utils.plots import corner_plot
+        samples = np.asarray(chain)[:, n_burn:, :].reshape(-1, self.n_fitted_parameters)
+        kwargs.setdefault("labels", self.labels)
+        return corner_plot(samples, filename=filename, **kwargs)
 
 
 class SamplerResult:
@@ -569,6 +792,23 @@ class SamplerResult:
     def get_log_prob(self, flat: bool = False, thin: int = 1, discard: int = 0):
         v = np.swapaxes(self.lnprobability, 0, 1)[discard + thin - 1::thin]
         return v.reshape(-1) if flat else v
+
+    def get_autocorr_time(self, discard: int = 0, thin: int = 1, c: float = 5.0,
+                          tol: float = 50.0, quiet: bool = False):
+        """Integrated autocorrelation time per parameter (emcee v3 semantics:
+        raises :class:`~..sampler.diagnostics.AutocorrError` when the chain
+        is shorter than ``tol`` tau, unless ``quiet``)."""
+        sub = np.asarray(self.chain)[:, discard + thin - 1::thin, :]
+        tau = autocorr_time(sub, c=c) * thin
+        n_eff_steps = sub.shape[1] * thin
+        if not quiet and np.any(tau * tol > n_eff_steps):
+            raise AutocorrError(
+                tau, f"The chain is shorter than tol={tol:g} times the "
+                     f"integrated autocorrelation time ({n_eff_steps} steps "
+                     f"vs tau = {np.array2string(tau, precision=1)}); the "
+                     "estimate is unreliable. Run longer, lower tol, or pass "
+                     "quiet=True.")
+        return tau
 
 
 # --------------------------------------------------------------------------- terms

@@ -1,17 +1,22 @@
 """Star-catalog container and radial binning.
 
-A copy of the ``DataReader`` part of ``mcmc_dynamics_tpu/utils/data.py``
-(itself the original ``utils/files/data_reader.py``): a table of per-star
-observables with WCS helpers, distance computation, and the greedy radial
-binning (sort by radius, grow each bin until it holds at least ``nstars``
-members *and* spans at least ``dlogr`` in log10 radius; leftover tail merged
-into the last bin or appended — data_reader.py:71-120).  The radial binning
-keeps only its NumPy branch; the native C++ path and the binary catalog cache
-of the JAX package are not part of the port.
+A copy of ``mcmc_dynamics_tpu/utils/data.py`` (itself the original
+``utils/files/data_reader.py`` and ``utils/radial_profile.py``): a table of
+per-star observables with WCS helpers, distance computation, and the greedy
+radial binning (sort by radius, grow each bin until it holds at least
+``nstars`` members *and* spans at least ``dlogr`` in log10 radius; leftover
+tail merged into the last bin or appended — data_reader.py:71-120), through
+the native C++ library first (:mod:`..native`) and NumPy where it is not
+available.  :meth:`DataReader.padded_bins` packs the bins into rectangular
+(B, N_max) arrays with a validity mask, so that every bin's ensemble advances
+in one batched loop (``pipelines.fit_radial_bins``), and
+:meth:`DataReader.to_cache` / :meth:`DataReader.from_cache` keep a catalog
+in the native binary cache.
 """
 
 from __future__ import annotations
 
+import pathlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,7 +25,7 @@ from .. import units as u
 from .coordinates import calc_xy_offset
 from .table import Table
 
-__all__ = ["DataReader", "radial_bin_numbers"]
+__all__ = ["DataReader", "RadialProfile", "radial_bin_numbers"]
 
 
 def radial_bin_numbers(r: np.ndarray, nstars: int = 50, dlogr: float = 0.2) -> np.ndarray:
@@ -32,6 +37,12 @@ def radial_bin_numbers(r: np.ndarray, nstars: int = 50, dlogr: float = 0.2) -> n
     """
     r = np.asarray(r, dtype=np.float64)
     n = r.size
+
+    # native C++ path (the same algorithm; see native/mcmcd_native.cpp)
+    from ..native import radial_bins as _native_bins
+    native = _native_bins(r, nstars, dlogr)
+    if native is not None:
+        return native
 
     order = np.argsort(r)
     r_sorted = r[order]
@@ -57,6 +68,17 @@ def radial_bin_numbers(r: np.ndarray, nstars: int = 50, dlogr: float = 0.2) -> n
         bins[i:] = bins.max()
 
     return bins[np.argsort(order)]
+
+
+class RadialProfile:
+    """Standalone binner over a raw radius array (reference utils/radial_profile.py)."""
+
+    def __init__(self, r):
+        self.r = np.asarray(r, dtype=np.float64)
+        self.n = self.r.size
+
+    def __call__(self, nstars: int = 50, dlogr: float = 0.2) -> np.ndarray:
+        return radial_bin_numbers(self.r, nstars=nstars, dlogr=dlogr)
 
 
 class DataReader:
@@ -132,7 +154,71 @@ class DataReader:
             return None
         return DataReader(self.data[bins == i])
 
+    def padded_bins(self, columns, dtype=np.float64, bins_subset=None):
+        """Pack radial bins into rectangular arrays for one batched fit.
+
+        Returns ``(arrays, mask)`` where ``arrays[name]`` has shape (B, N_max)
+        (padded with the bin's first entry so padded lanes stay numerically
+        benign) and ``mask`` is (B, N_max) float {0,1}; masked lanes
+        contribute zero to likelihood sums.
+
+        ``bins_subset``: optional sequence of bin ids to pack (in the given
+        order) — the hook for size-bucketed packing, where one oversized outer
+        bin must not set N_max for every small inner bin.
+        """
+        if "bin" not in self.data:
+            raise ValueError("Call make_radial_bins first.")
+        bins = np.asarray(self.data["bin"])
+        bin_ids = (np.arange(self.n_bins) if bins_subset is None
+                   else np.asarray(bins_subset))
+        rows = [np.flatnonzero(bins == b) for b in bin_ids]
+        n_max = max(int(sel.size) for sel in rows)
+        values = {name: np.asarray(self.data.value(name), dtype=dtype)
+                  for name in columns}
+
+        arrays = {name: np.zeros((len(bin_ids), n_max), dtype=dtype)
+                  for name in columns}
+        mask = np.zeros((len(bin_ids), n_max), dtype=dtype)
+        for row, sel in enumerate(rows):
+            k = sel.size
+            mask[row, :k] = 1.0
+            for name in columns:
+                col = values[name][sel]
+                arrays[name][row, :k] = col
+                if k < n_max:
+                    arrays[name][row, k:] = col[0]
+        return arrays, mask
+
     # ------------------------------------------------------------------ I/O
     @classmethod
     def read(cls, source, fmt: str = "ascii.ecsv", **kwargs) -> "DataReader":
         return cls(Table.read(source, fmt=fmt, **kwargs))
+
+    def to_cache(self, path, columns=None) -> bool:
+        """Write the numeric columns to the native binary catalog cache
+        (mmap-loadable; see native/mcmcd_native.cpp) and their names to
+        ``{path}.cols``; False when the native library is unavailable."""
+        from ..native import cache_write
+        columns = columns or self.data.colnames
+        payload = np.column_stack([np.asarray(self.data.value(c), dtype=np.float64)
+                                   for c in columns])
+        ok = cache_write(path, payload)
+        if ok:
+            pathlib.Path(str(path) + ".cols").write_text(",".join(columns))
+        return ok
+
+    @classmethod
+    def from_cache(cls, path, units=None) -> Optional["DataReader"]:
+        """Load a catalog from the native binary cache; None when unavailable."""
+        from ..native import cache_read
+        data = cache_read(path)
+        if data is None:
+            return None
+        columns = pathlib.Path(str(path) + ".cols").read_text().split(",")
+        table = Table({name: data[:, i] for i, name in enumerate(columns)},
+                      units=units or {})
+        if units:
+            for name, unit in units.items():
+                if name in table:
+                    table.units[name] = u.parse_unit(unit)
+        return cls(table)

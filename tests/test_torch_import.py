@@ -5,9 +5,13 @@ a fresh interpreter: it builds a fixed-centre and a free-centre ModelFit, a
 ModelFit on 16384 stars in the binned (``sufficient``) tier, a
 ConstantFitGB, a SingleStars background, ModelFitGB,
 ModelFitConstantBackground, DoubleModelFit and DoubleModelFitGB on the CPU,
-evaluates the restructured mixtures of ``ops.probe_mixture``, and then looks
-for ``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in
-``sys.modules``.
+evaluates the restructured mixtures of ``ops.probe_mixture``, imports
+``pipelines``, ``native``, ``profiling``, ``sampler.diagnostics`` and
+``cli.run_tests``, samples with a DE/snooker mixture, fits two radial bins
+with ``fit_radial_bins`` and bins radii (natively where g++ builds the
+library), and then looks for ``jax``
+and for ``mcmc_dynamics_tpu`` and its submodules in ``sys.modules`` (and
+checks that nothing imported matplotlib, which the H100 machine lacks).
 """
 
 import pathlib
@@ -91,6 +95,20 @@ for cls, tier, kw in ((ModelFitGB, "model_mixture", {}),
     assert model.lnprob_tier() == tier, (cls, model.lnprob_tier())
     lnp = model.batched_lnprob()(torch.as_tensor(model.get_initials(4)))
     assert torch.isfinite(lnp).all(), (cls, lnp)
+
+from mcmc_dynamics_tpu_torch import native, pipelines, profiling
+from mcmc_dynamics_tpu_torch.cli import run_tests
+from mcmc_dynamics_tpu_torch.sampler import diagnostics
+mixed = fit(n_walkers=8, n_steps=3, prefix=None, move=(("de", 0.8), ("snooker", 0.2)))
+assert mixed.chain.shape == (8, 3, 6), mixed.chain.shape
+assert diagnostics.autocorr_time(mixed.chain).shape == (6,)
+binned = pipelines.fit_radial_bins(data, truth["ra_center"], truth["dec_center"],
+                                   nstars=150, dlogr=0.05, n_walkers=8, n_steps=3,
+                                   device="cpu")
+assert binned.n_bins == 2 and binned.chains.shape == (2, 8, 3, 4), binned.chains.shape
+assert port.utils.RadialProfile(np.arange(1.0, 101.0))(50, 0.1).max() == 1
+native.native_available()
+assert "matplotlib" not in sys.modules
 
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 loaded = sorted(m for m in sys.modules

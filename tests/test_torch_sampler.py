@@ -82,7 +82,7 @@ def test_stretch_steps_equal_jax_given_its_uniforms(fits):
         uniforms = [torch.as_tensor(np.array(
             jax.random.uniform(k, (3, half), dtype=jnp.float64))) for k in (k0, k1)]
         jstate = jax_step(jlnp, jstate, batched=True)
-        tstate = stretch_step(tlnp, tstate, uniforms=uniforms)
+        tstate = stretch_step(tlnp, tstate, draws=uniforms)
         np.testing.assert_allclose(tstate.coords.numpy(), np.asarray(jstate.coords),
                                    rtol=1e-12)
         np.testing.assert_allclose(tstate.log_prob.numpy(),
@@ -151,6 +151,12 @@ def test_run_ensemble_layout_and_thin():
 
 @pytest.mark.parametrize("move", ["de", "snooker", (("stretch", 0.5), ("de", 0.5))])
 def test_unported_moves_raise(fits, move):
+    """The moves the port once refused now sample; a move it does not have
+    (emcee's KDE move), alone or in a mixture with them, raises."""
     _, fit = fits
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit(n_walkers=8, n_steps=2, move=move, prefix=None)
+    run = fit(n_walkers=8, n_steps=2, move=move, prefix=None)
+    assert run.chain.shape == (8, 2, 6) and np.isfinite(run.lnprobability).all()
+    mixture = (move, "kde") if isinstance(move, str) else move + (("kde", 0.5),)
+    for bad in ("kde", mixture):
+        with pytest.raises(ValueError, match="Unknown move"):
+            fit(n_walkers=8, n_steps=2, move=bad, prefix=None)
