@@ -93,7 +93,27 @@ calls, and fails (non-zero exit) if any phase does:
     ``sample_to_convergence`` with a DE/snooker mixture (kernel 1), capped at
     twice the steps the JAX package needs there; goldens after discarding
     twice the largest tau, ``predict_fields`` on a 32 x 32 grid and
-    ``profiling.benchmark_lnprob`` at 1024 walkers.
+    ``profiling.benchmark_lnprob`` at 1024 walkers;
+32. the JAM engine on the card (plain torch, no kernel of its own): on
+    ``bench.py --validate``'s set-ups (Axisymmetric with a free black hole on
+    400 stars with a tail at 15-25 sigma, AnalyticalProfiles, a two-population
+    ChemoProfiles on 500 stars; 64 seeded walkers), float32 and float64 on
+    both tiers against the JAX package's float64 values
+    (``chip_smoke_jam_reference.json``, from ``chip_smoke_reference.py K``),
+    grid against direct, and the timings: one batched lnprob at 64 and 512
+    walkers, its exp and product shares, the walker-chunk sweep, TF32 for
+    the record, the pair table's bytes;
+33. main path K1, the production recipe: ``python -m
+    mcmc_dynamics_tpu_torch.cli.run`` on ``example/omega_cen_config.json``
+    (AnalyticalProfiles on 6284 stars, auto dispatch on the grid tier, 32
+    walkers x 60 steps, profiles, the mass posterior, the binned section),
+    the recipe's 64 seeded walkers against the JAX package on both tiers,
+    and a bitwise resume;
+34. main path K2: Axisymmetric with mlr, barq, kappa_x, kappa_y, mbh and
+    delta_v free on a 16384-star self-consistent mock (the recipe's MGE, the
+    velocities from the port's float64 engine at a stated truth), 64 walkers
+    x 1500 steps on the grid tier; every truth inside its posterior's
+    0.15-99.85 % interval.
 
 The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
@@ -1789,6 +1809,555 @@ def phase_convergence(device):
                 predict_s=predict_s, bench=bench, fit=fit)
 
 
+# ----------------------------------------------------------------------------- JAM
+# phase 32: bench.py --validate's JAM set-up (bench.py:707-900); phase 33: path
+# K1, the production recipe (cli/run.py on example/omega_cen_config.json);
+# phase 34: path K2, bench.py's jam-bh/grid@16k width with a self-consistent mock
+JAM_REFERENCE = REPO / "chip_smoke_jam_reference.json"
+CONFIG = REPO / "example" / "omega_cen_config.json"
+JAM_F32_TOL = dict(rtol=2e-5, atol=0.1)     # float32 against float64 (bench.py:772)
+JAM_F64_TOL = dict(rtol=1e-9, atol=1e-6)    # float64 on the card against the JAX package
+JAM_GRID_TOL = dict(rtol=3e-3, atol=1.0)    # grid tier against direct (bench.py:805)
+JAM_CENTRE = (56.345, -26.675)
+JAM_KINDS = ("axisymmetric", "profiles", "chemo")
+JAM_MODELS = {"axisymmetric": "Axisymmetric", "profiles": "AnalyticalProfiles",
+              "chemo": "ChemoProfiles"}
+JAM_WALKERS = 64
+# the validate catalogs hold 400 and 500 stars: the grid tier is forced by
+# lowering the auto threshold, on both packages' instances
+JAM_GRID_MIN_STARS = 100
+K1_STEPS = dict(n_walkers=32, n_steps=60, n_out=30, n_extra=20)
+# path K2: the truth of the mock and the run
+K2_TRUTH = dict(mlr=2.5, barq=0.7, kappa_x=0.3, kappa_y=0.15, mbh=3.0e4, delta_v=0.5)
+K2_FIXED = dict(d=5.2, beta=0.0, rbh=1.0, ra_center=201.697, dec_center=-47.48)
+K2_RUN = dict(n_stars=16_384, n_walkers=64, n_steps=1500, n_burn=500)
+
+
+def jam_columns(kind):
+    """bench.py's validate catalogs as numpy columns: 400 stars around the
+    centre with 40 pushed to 15-25 sigma of the outer 40" tracer Gaussian, or
+    (chemo) 500 stars with [Fe/H] from two populations."""
+    ra_c, dec_c = JAM_CENTRE
+    if kind != "chemo":
+        rng = np.random.default_rng(6)
+        n = 400
+        ra = ra_c + 0.03 * rng.normal(size=n)
+        dec = dec_c + 0.03 * rng.normal(size=n)
+        v = 5.0 * rng.normal(size=n)
+        verr = 0.5 + 0.5 * rng.random(n)
+        far = rng.integers(0, n, 40)
+        ra[far] = ra_c + rng.uniform(0.18, 0.28, far.size)
+        return {"ra": (ra, "deg"), "dec": (dec, "deg"), "v": (v, "km/s"),
+                "verr": (verr, "km/s")}
+    rng = np.random.default_rng(10)
+    n = 500
+    r = np.abs(rng.normal(0, 40, n)) + 1.0
+    phi = rng.uniform(-np.pi, np.pi, n)
+    x, y = r * np.cos(phi), r * np.sin(phi)
+    pop = rng.random(n) < 0.6
+    return {"ra": (ra_c - (x / 3600.0) / np.cos(np.radians(dec_c)), "deg"),
+            "dec": (dec_c + y / 3600.0, "deg"),
+            "v": (3.0 * rng.normal(size=n), "km/s"),
+            "verr": (np.full(n, 0.3), "km/s"),
+            "feh": (np.where(pop, -0.5, 0.2) + 0.1 * rng.normal(size=n), None),
+            "feherr": (np.full(n, 0.05), None)}
+
+
+def jam_parameters(kind, cls):
+    """The validate set-up's parameters on ``cls`` (either package's model)."""
+    ra_c, dec_c = JAM_CENTRE
+    if kind == "chemo":
+        params = cls.default_parameters(2)
+        for name, val in dict(d=5.0, mlr_0=2.0, mlr_t=2.0, mlr_inf=2.0, r_mlr=20.0,
+                              barq=0.5, beta=0.0, ra_center=ra_c, dec_center=dec_c,
+                              mu_feh_b=0.2, sigma_feh_b=0.1, kappa_max_b=-0.2,
+                              logr_kappa_b=float(np.log10(30.0 / 60.0)), h_ab=0.2,
+                              sigma_feh_a=0.12,
+                              logr_kappa_a=float(np.log10(20.0 / 60.0))).items():
+            params[name].set(value=val, fixed=True)
+        params["kappa_max_a"].set(value=0.4, min=-2.0, max=2.0, fixed=False)
+        params["mu_feh_a"].set(value=-0.5, min=-1.0, max=1.0, fixed=False)
+        params["h_aa"].set(value=0.8, min=0.0, max=1.0, fixed=False)
+        return params
+    params = cls.default_parameters()
+    fixed = dict(d=5.0, beta=0.0, ra_center=ra_c, dec_center=dec_c, rbh=1.0,
+                 delta_v=0.0)
+    if kind == "profiles":
+        fixed["mbh"] = 0.0
+    for name, val in fixed.items():
+        params[name].set(value=val, fixed=True)
+    if kind == "axisymmetric":
+        params["mlr"].set(value=2.0, min=0.1, max=10.0, fixed=False)
+        params["mbh"].set(value=1e4, min=0.0, max=1e6, fixed=False,
+                          initials="rng.uniform(5e3, 5e4, size=n)")
+    else:
+        for name in ("mlr_0", "mlr_t", "mlr_inf"):
+            params[name].set(value=2.0, min=0.1, max=10.0, fixed=False)
+    params["barq"].set(value=0.4, fixed=False)
+    params["kappa_x"].set(value=0.5, min=-2.0, max=2.0, fixed=False)
+    params["kappa_y"].set(value=0.0, min=-2.0, max=2.0, fixed=False)
+    return params
+
+
+def jam_fit(kind, pkg, **kw):
+    """The validate set-up's model ``kind`` built by ``pkg`` (the port, or the
+    JAX package in chip_smoke_reference.py), its grid threshold lowered."""
+    q, table, mge = pkg.units.Quantity, pkg.utils.Table, pkg.utils.MgeReader
+    i, s, qs = (([5000.0, 800.0], [10.0, 40.0], [0.9, 0.9]) if kind == "chemo" else
+                ([5000.0, 1000.0], [10.0, 40.0], [0.9, 0.85]))
+    lum = {"n": [1, 2], "i": q(i, "solLum/pc2"), "s": q(s, "arcsec"), "q": qs}
+    if kind == "chemo":
+        lum["pop"] = [0, 1]
+        kw["n_pops"] = 2
+    mass = {"n": [1, 2], "i": q(i, "solMass/pc2"), "s": q(s, "arcsec"), "q": qs}
+    cls = getattr(pkg.models, JAM_MODELS[kind])
+    reader = pkg.utils.DataReader({name: (q(v, unit) if unit else v)
+                                   for name, (v, unit) in jam_columns(kind).items()})
+    fit = cls(reader, parameters=jam_parameters(kind, cls),
+              mge_lum=mge(table(lum), lum=True), mge_mass=mge(table(mass), lum=False),
+              **kw)
+    fit.jam_grid_min_stars = JAM_GRID_MIN_STARS
+    return fit
+
+
+def jam_walkers(kind, free):
+    """bench.py's 64 seeded walkers of ``kind`` in ``free`` order; walker 0 off
+    the barq prior (chemo: walker 3 crossing the populations in [Fe/H]) and
+    walkers 1-2 rotating at kappa_x 1.9, where stars reach v2zz <= vz^2."""
+    n = JAM_WALKERS
+    if kind == "chemo":
+        rng = np.random.default_rng(11)
+        draws = {"kappa_max_a": rng.uniform(0.2, 0.6, n),
+                 "mu_feh_a": rng.uniform(-0.6, -0.4, n),
+                 "h_aa": rng.uniform(0.7, 0.95, n)}
+        draws["mu_feh_a"][3] = 0.5
+        return np.column_stack([draws[name] for name in free])
+    if kind == "axisymmetric":
+        rng = np.random.default_rng(8)
+        draws = {"mlr": rng.uniform(1.5, 2.5, n), "barq": rng.uniform(0.41, 0.45, n),
+                 "kappa_x": rng.uniform(0.3, 0.7, n),
+                 "kappa_y": rng.uniform(-0.1, 0.1, n),
+                 "mbh": rng.uniform(5e3, 5e4, n)}
+    else:
+        rng = np.random.default_rng(9)
+        draws = {"mlr_0": rng.uniform(1.8, 2.6, n), "mlr_t": rng.uniform(1.6, 2.4, n),
+                 "mlr_inf": rng.uniform(1.2, 2.0, n),
+                 "r_mlr": rng.uniform(15.0, 30.0, n),
+                 "r_kappa": rng.uniform(15.0, 30.0, n),
+                 "barq": rng.uniform(0.41, 0.45, n),
+                 "kappa_x": rng.uniform(0.3, 0.7, n),
+                 "kappa_y": rng.uniform(-0.1, 0.1, n)}
+    draws["barq"][0] = 0.05
+    draws["kappa_x"][1:3] = 1.9
+    return np.column_stack([draws[name] for name in free])
+
+
+def k1_config(tmp):
+    """The production recipe with absolute data and MGE paths and its prefix
+    under ``tmp``, written there; returns (config dict, its path)."""
+    cfg = json.loads(CONFIG.read_text())
+    cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
+    cfg["mge"] = str(REPO / cfg["mge"])
+    cfg["prefix"] = str(pathlib.Path(tmp) / "omega_cen_run")
+    path = pathlib.Path(tmp) / "omega_cen_config.json"
+    path.write_text(json.dumps(cfg, indent=1))
+    return cfg, path
+
+
+def k1_fit(pkg, **kw):
+    """Path K1's model as cli/run.py builds it from the recipe, by ``pkg``
+    (the catalog read with numpy)."""
+    cfg = json.loads(CONFIG.read_text())
+    cls = getattr(pkg.models, "AnalyticalProfiles")
+    params = cls.default_parameters()
+    for name, spec in cfg["parameters"].items():
+        params[name].set(**spec)
+    path = REPO / cfg["data"]["file"]
+    header = path.read_text().splitlines()[0].split(",")
+    col = dict(zip(header, np.loadtxt(path, delimiter=",", skiprows=1).T))
+    q = pkg.units.Quantity
+    reader = pkg.utils.DataReader({
+        "ra": q(col["ra"], "deg"), "dec": q(col["dec"], "deg"),
+        "v": q(col["v"] - float(cfg["data"].get("v_sys") or 0.0), "km/s"),
+        "verr": q(col["verr"], "km/s")})
+    mge_lum, mge_mass = pkg.utils.get_mge(REPO / cfg["mge"])
+    return cls(reader, parameters=params, mge_lum=mge_lum, mge_mass=mge_mass,
+               seed=cfg["sampling"]["seed"], **kw)
+
+
+class jam_mode:
+    """``MCMC_TPU_JAM`` set to ``mode`` inside the block."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    def __enter__(self):
+        import os
+        self.saved = os.environ.get("MCMC_TPU_JAM")
+        os.environ["MCMC_TPU_JAM"] = self.mode
+
+    def __exit__(self, *exc):
+        import os
+        if self.saved is None:
+            os.environ.pop("MCMC_TPU_JAM", None)
+        else:
+            os.environ["MCMC_TPU_JAM"] = self.saved
+
+
+def jam_lnprob(fit, pos, tier):
+    with jam_mode(tier):
+        if fit.lnprob_tier() != tier:
+            raise AssertionError(f"{type(fit).__name__}: tier {fit.lnprob_tier()}, "
+                                 f"expected {tier}")
+        return fit.batched_lnprob()(fit._to_device(pos))
+
+
+def wall_ms(fn, reps=5):
+    """Median wall time of one synchronised call of ``fn`` in ms (host and
+    device: what a sampler step waits for)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def grid_vs_direct(label, grid, direct):
+    """The grid tier within JAM_GRID_TOL of the direct one, the same -inf
+    pattern, and the walkers' lnprob spread above 10x the largest difference
+    (bench.py:799-816)."""
+    maxd = compare(f"{label} grid vs direct", grid, direct, **JAM_GRID_TOL)
+    ref = direct.double().cpu().numpy()
+    spread = float(np.std(ref[np.isfinite(ref)]))
+    if not spread > 10 * maxd:
+        raise AssertionError(f"{label}: grid-direct difference {maxd:.3g} not << "
+                             f"the walkers' spread {spread:.3g}")
+    return maxd, spread
+
+
+def jam_checks(label, fit32, fit64, pos, reference, need_inf=True):
+    """Float32 and float64 on the card against the JAX package's float64 values
+    (``reference[tier]``) on both tiers, and grid against direct; returns the
+    errors.  ``need_inf``: the walkers must include -inf ones."""
+    import torch
+
+    out, lp32 = {}, {}
+    for tier in ("direct", "grid"):
+        want = torch.as_tensor(np.asarray(reference[tier], np.float64))
+        lp32[tier] = jam_lnprob(fit32, pos, tier)
+        got64 = jam_lnprob(fit64, pos, tier)
+        fin = int(torch.isfinite(want).sum())
+        if fin < 16 or (need_inf and fin == want.numel()):
+            raise AssertionError(f"{label} {tier}: {fin} of {want.numel()} walkers "
+                                 "finite")
+        out[f"{tier} f64"] = compare(f"{label} {tier} float64", got64, want,
+                                     **JAM_F64_TOL)
+        out[f"{tier} f32"] = compare(f"{label} {tier} float32", lp32[tier], want,
+                                     **JAM_F32_TOL)
+        out["finite"] = fin
+    out["grid-direct"], out["spread"] = grid_vs_direct(label, lp32["grid"],
+                                                       lp32["direct"])
+    return out
+
+
+def jam_breakdown(fit, pos, tier):
+    """One lnprob call under torch.profiler: device ms, kernels, and the
+    shares of device time in exp kernels (the pair table and the tracer
+    factor) and in the products (cuBLAS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with jam_mode(tier):
+        fn = fit.batched_lnprob()
+        thetas = fit._to_device(pos)
+        fn(thetas)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(thetas)
+            torch.cuda.synchronize()
+    total = exp = gemm = 0.0
+    count = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        t = evt.self_cuda_time_total if t is None else t
+        total += t
+        count += evt.count
+        key = evt.key.lower()
+        if "exp" in key:
+            exp += t
+        if any(k in key for k in ("gemm", "gemv", "cutlass", "xmma", "cublas")):
+            gemm += t
+    return dict(device_ms=total / 1e3, kernels=count,
+                exp_share=exp / total if total else 0.0,
+                product_share=gemm / total if total else 0.0)
+
+
+def jam_table_bytes(fit, chunk, tier):
+    """Bytes of the float32 pair table (chunk, T, P) of one engine call:
+    T = mass components x n_u, P = positions x n_zeta."""
+    n_pos = (fit.jam_grid_orders[0] * fit.jam_grid_orders[1] if tier == "grid"
+             else fit.n_data)
+    return chunk * fit._mge_tensors[3].shape[-1] * fit.n_u * n_pos * fit.n_zeta * 4
+
+
+def phase_jam_engine(device, n_big=512):
+    """Phase 32: the JAM engine on the card at the validate set-up, three
+    models, and the free-BH Axisymmetric's timings at 64 and ``n_big``
+    walkers; returns its numbers."""
+    import torch
+
+    import mcmc_dynamics_tpu_torch as port
+
+    reference = json.loads(JAM_REFERENCE.read_text())["validate"]
+    out = {}
+    for kind in JAM_KINDS:
+        fit32 = jam_fit(kind, port, device=device)
+        fit64 = jam_fit(kind, port, device=device, dtype=torch.float64)
+        free = fit32.fitted_parameters
+        if free != reference[kind]["free"]:
+            raise AssertionError(f"{kind}: free parameters {free}, reference "
+                                 f"{reference[kind]['free']}")
+        pos = jam_walkers(kind, free)
+        if not np.array_equal(pos, np.asarray(reference[kind]["walkers"])):
+            raise AssertionError(f"{kind}: walkers differ from the reference's")
+        out[kind] = jam_checks(kind, fit32, fit64, pos, reference[kind])
+
+    # timing, shares, chunks, TF32 and table bytes on the free-BH Axisymmetric
+    fit = jam_fit("axisymmetric", port, device=device)
+    free = fit.fitted_parameters
+    rng = np.random.default_rng(12)
+    big = np.column_stack([rng.uniform(1.5, 2.5, n_big), rng.uniform(0.41, 0.45, n_big),
+                           rng.uniform(0.3, 0.7, n_big), rng.uniform(-0.1, 0.1, n_big),
+                           rng.uniform(5e3, 5e4, n_big)])
+    if free != ["mlr", "barq", "kappa_x", "kappa_y", "mbh"]:
+        raise AssertionError(f"free parameters {free}")
+    pos64 = jam_walkers("axisymmetric", free)
+    ref = reference["axisymmetric"]
+    timing = {}
+    for tier in ("direct", "grid"):
+        with jam_mode(tier):
+            fn = fit.batched_lnprob()
+            for w, pos in ((64, pos64), (n_big, big)):
+                thetas = fit._to_device(pos)
+                timing[f"{tier} {w} ms"] = wall_ms(lambda: fn(thetas))
+            timing[f"{tier} breakdown {n_big}"] = jam_breakdown(fit, big, tier)
+        attr = "jam_grid_chunk" if tier == "grid" else "lnprob_chunk"
+        default = getattr(fit, attr)
+        sweep = {}
+        for chunk in (16, 32, 64, 128):
+            setattr(fit, attr, chunk)
+            with jam_mode(tier):
+                fn = fit.batched_lnprob()
+                thetas = fit._to_device(big)
+                sweep[chunk] = wall_ms(lambda: fn(thetas))
+        setattr(fit, attr, default)
+        timing[f"{tier} chunk sweep {n_big} ms"] = sweep
+        timing[f"{tier} table MB/chunk"] = jam_table_bytes(fit, default, tier) / 1e6
+        # TF32 for the record only: the port runs its products in full FP32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = jam_lnprob(fit, pos64, tier)
+            with jam_mode(tier):
+                fn = fit.batched_lnprob()
+                thetas = fit._to_device(pos64)
+                timing[f"{tier} tf32 64 ms"] = wall_ms(lambda: fn(thetas))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        want = np.asarray(ref[tier], np.float64)
+        fin = np.isfinite(want)
+        got = got.double().cpu().numpy()
+        timing[f"{tier} tf32 max err"] = (float(np.max(np.abs(got[fin] - want[fin])))
+                                          if np.isfinite(got[fin]).all() else math.inf)
+    torch.cuda.reset_peak_memory_stats()
+    jam_lnprob(fit, big, "grid")
+    torch.cuda.synchronize()
+    timing[f"grid peak MB {n_big}"] = torch.cuda.max_memory_allocated() / 1e6
+    out["timing"] = timing
+    # the least time of one engine call's pair table at the grid tier, n_big
+    # walkers: its exps on the SFU against the table's bytes written once and
+    # read once, and the contraction's FP32 flops
+    pairs = jam_table_bytes(fit, n_big, "grid") / 4
+    rows = 2 * fit._mge_tensors[0].shape[-1] + 1
+    out["bound"] = dict(exp_ms=pairs / SFU_OPS_PER_S * 1e3,
+                        table_ms=2 * 4 * pairs / HBM_BYTES_PER_S * 1e3,
+                        product_ms=2 * rows * pairs / FP32_FLOPS_PER_S * 1e3)
+    return out
+
+
+def phase_production_recipe(device):
+    """Phase 33, path K1: the production recipe through ``python -m
+    mcmc_dynamics_tpu_torch.cli.run`` (auto dispatch on the grid tier), the
+    recipe's 64 seeded walkers against the JAX package on both tiers, and a
+    bitwise resume; returns its numbers."""
+    import torch
+
+    import mcmc_dynamics_tpu_torch as port
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, path = k1_config(tmp)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mcmc_dynamics_tpu_torch.cli.run",
+                               str(path), "--device", torch.device(device).type],
+                              cwd=REPO, capture_output=True, text=True, timeout=900)
+        out["cli_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli.run exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        if "likelihood tier: grid" not in proc.stderr:
+            raise AssertionError("cli.run did not take the grid tier")
+        prefix = cfg["prefix"]
+        with np.load(prefix + "_chain.npz") as f:
+            chain, lnprob = f["chain"], f["lnprob"]
+        s = cfg["sampling"]
+        if chain.shape != (s["n_walkers"], s["n_steps"], 9) or not (
+                np.isfinite(chain).all() and np.isfinite(lnprob).all()):
+            raise AssertionError(f"cli.run chain {chain.shape} not finite")
+        masses = np.load(prefix + "_mass_posterior.npy")
+        profile = port.utils.Table.read(prefix + "_profile.ecsv")
+        binned = port.utils.Table.read(prefix + "_binned.csv", fmt="csv")
+        for name, col in (("mass", masses), ("v_rot", profile.value("v_rot")),
+                          ("sigma", profile.value("sigma")),
+                          ("binned sigma_max", binned.value("sigma_max median"))):
+            if not np.isfinite(col).all():
+                raise AssertionError(f"cli.run output {name} not finite")
+        out["mass"] = np.percentile(masses, [16, 50, 84]).tolist()
+        out["bins"] = len(binned)
+        out["lnprob_median_last"] = float(np.median(lnprob[:, -1]))
+
+    reference = json.loads(JAM_REFERENCE.read_text())["recipe"]
+    fit32 = k1_fit(port, device=device)
+    fit64 = k1_fit(port, device=device, dtype=torch.float64)
+    if fit32.lnprob_tier() != "grid":
+        raise AssertionError(f"recipe tier {fit32.lnprob_tier()}, expected grid")
+    pos = np.asarray(reference["walkers"])
+    if not np.array_equal(fit64.get_initials(JAM_WALKERS), pos):
+        raise AssertionError("K1: the port's initial walkers differ from the JAX "
+                             "package's")
+    out["checks"] = jam_checks("K1", fit32, fit64, pos, reference, need_inf=False)
+    out["stars"] = fit32.n_data
+    _, s_per_step = run_with_resume("K1", fit32, K1_STEPS["n_walkers"],
+                                    K1_STEPS["n_steps"], K1_STEPS["n_out"],
+                                    n_extra=K1_STEPS["n_extra"])
+    out["ms_per_step"] = s_per_step * 1e3
+    out["fit"] = fit32
+    return out
+
+
+def k2_mock(device):
+    """Path K2's self-consistent mock: 16384 stars drawn from the recipe's
+    tracer MGE, velocities drawn from the port's float64 engine at K2_TRUTH;
+    returns numpy columns."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.models.jam.moments import jam_los_moments
+    from mcmc_dynamics_tpu_torch.utils import get_mge, xy_offset_rad
+
+    rng = np.random.default_rng(34)
+    n = K2_RUN["n_stars"]
+    cfg = json.loads(CONFIG.read_text())
+    mge_lum, mge_mass = get_mge(REPO / cfg["mge"])
+    li, ls, lq = mge_lum.as_arrays()
+    comp = rng.choice(li.size, n, p=li * ls ** 2 * lq / np.sum(li * ls ** 2 * lq))
+    x = rng.normal(size=n) * ls[comp]
+    y = rng.normal(size=n) * ls[comp] * lq[comp]
+    theta0 = math.atan2(K2_TRUTH["kappa_y"], K2_TRUTH["kappa_x"])
+    dx = x * math.cos(theta0) - y * math.sin(theta0)         # model frame -> sky
+    dy = x * math.sin(theta0) + y * math.cos(theta0)
+    ra_c, dec_c = K2_FIXED["ra_center"], K2_FIXED["dec_center"]
+    ra = ra_c - dx / 3600.0 / math.cos(math.radians(dec_c))
+    dec = dec_c + dy / 3600.0
+    # the model-frame positions the likelihood will see: the exact offsets
+    ex, ey = xy_offset_rad(np.radians(ra), np.radians(dec), math.radians(ra_c),
+                           math.radians(dec_c), xp=np)
+    ex, ey = ex * 206264.80624709636, ey * 206264.80624709636
+    mx = ex * math.cos(theta0) + ey * math.sin(theta0)
+    my = -ex * math.sin(theta0) + ey * math.cos(theta0)
+    median_q = float(np.median(lq))
+    barq = K2_TRUTH["barq"]
+    incl = math.acos(math.sqrt((median_q ** 2 - barq ** 2) / (1.0 - barq ** 2)))
+
+    def t64(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    res = jam_los_moments(t64(mx), t64(my), *(t64(a) for a in (li, ls, lq)),
+                          *(t64(a) for a in mge_mass.as_arrays()),
+                          d=K2_FIXED["d"], beta=K2_FIXED["beta"],
+                          kappa=math.hypot(K2_TRUTH["kappa_x"], K2_TRUTH["kappa_y"]),
+                          mscale=K2_TRUTH["mlr"], incl=incl, mbh=K2_TRUTH["mbh"],
+                          rbh=K2_FIXED["rbh"])
+    if not bool(res.valid[0]):
+        raise AssertionError("K2 truth: invalid deprojection")
+    vz = res.vz[0].cpu().numpy()
+    sigma = np.sqrt(res.v2zz[0].cpu().numpy() - vz ** 2)
+    verr = 0.5 + 1.5 * rng.random(n)
+    v = vz - K2_TRUTH["delta_v"] + sigma * rng.normal(size=n) + verr * rng.normal(size=n)
+    return {"ra": (ra, "deg"), "dec": (dec, "deg"), "v": (v, "km/s"),
+            "verr": (verr, "km/s")}
+
+
+def k2_fit(device, columns):
+    from mcmc_dynamics_tpu_torch.models import Axisymmetric
+    from mcmc_dynamics_tpu_torch.utils import get_mge
+
+    cfg = json.loads(CONFIG.read_text())
+    mge_lum, mge_mass = get_mge(REPO / cfg["mge"])
+    params = Axisymmetric.default_parameters()
+    for name, val in K2_FIXED.items():
+        params[name].set(value=val, fixed=True)
+    for name, (lo, hi) in dict(mlr=(0.5, 10.0), kappa_x=(-2.0, 2.0),
+                               kappa_y=(-2.0, 2.0), mbh=(0.0, 1e6),
+                               delta_v=(-5.0, 5.0)).items():
+        params[name].set(value=K2_TRUTH[name], min=lo, max=hi, fixed=False)
+    params["barq"].set(value=K2_TRUTH["barq"], fixed=False)
+    return Axisymmetric(port_reader(columns), parameters=params, mge_lum=mge_lum,
+                        mge_mass=mge_mass, seed=35, device=device)
+
+
+def phase_jam_recovery(device):
+    """Phase 34, path K2: 64 walkers x 1500 steps on the grid tier on the
+    16384-star mock; every free parameter's truth inside its posterior's
+    0.15-99.85 % interval; returns its numbers."""
+    import torch
+
+    fit = k2_fit(device, k2_mock(device))
+    if fit.lnprob_tier() != "grid":
+        raise AssertionError(f"K2 tier {fit.lnprob_tier()}, expected grid")
+    free = fit.fitted_parameters
+    rng = np.random.default_rng(36)
+    truth = np.array([K2_TRUTH[name] for name in free])
+    scale = np.array([0.05 * K2_TRUTH["mbh"] if name == "mbh" else
+                      0.05 if name == "delta_v" else 0.01 for name in free])
+    pos = truth + scale * rng.normal(size=(K2_RUN["n_walkers"], len(free)))
+    fit(n_walkers=K2_RUN["n_walkers"], n_steps=20, pos=pos, prefix=None)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = fit(n_walkers=K2_RUN["n_walkers"], n_steps=K2_RUN["n_steps"], pos=pos,
+              prefix=None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    flat = run.chain[:, K2_RUN["n_burn"]:, :].reshape(-1, len(free))
+    lo, med, hi = np.percentile(flat, [0.15, 50, 99.85], axis=0)
+    for name, t, a, b in zip(free, truth, lo, hi):
+        if not a <= t <= b:
+            raise AssertionError(f"K2: truth {name} = {t:g} outside the posterior's "
+                                 f"0.15-99.85 % interval [{a:.5g}, {b:.5g}]")
+    return dict(stars=fit.n_data, walkers=K2_RUN["n_walkers"], steps=K2_RUN["n_steps"],
+                ms_per_step=seconds / K2_RUN["n_steps"] * 1e3,
+                acceptance=float(np.mean(run.acceptance_fraction)),
+                medians={n: float(m) for n, m in zip(free, med)},
+                intervals={n: (float(a), float(b)) for n, a, b in zip(free, lo, hi)},
+                fit=fit, pos=pos)
+
+
 # ----------------------------------------------------------------------------- main
 def main(argv=None) -> int:
     import torch
@@ -2057,6 +2626,38 @@ def main(argv=None) -> int:
           f"benchmark_lnprob {json.dumps(path_j['bench'])} | launches "
           f"{path_j['launches']}")
 
+    jam = drive("JAM engine", lambda: phase_jam_engine(device), set())
+    for kind in JAM_KINDS:
+        c = jam[kind]
+        print(f"phase 32 JAM engine on the card ({JAM_MODELS[kind]}, validate set-up, "
+              f"{JAM_WALKERS} walkers, {c['finite']} finite): float64 vs JAX float64 "
+              f"max |d| direct {c['direct f64']:.3g} grid {c['grid f64']:.3g} | float32 "
+              f"vs JAX float64 direct {c['direct f32']:.4g} grid {c['grid f32']:.4g} "
+              f"(gate {JAM_F32_TOL}) | float32 grid vs direct {c['grid-direct']:.4g} "
+              f"(spread {c['spread']:.4g}) | same -inf pattern")
+    print(f"  JAM engine timing (Axisymmetric, free mbh): "
+          f"{json.dumps(jam['timing'])} | bound at 512 walkers, grid tier: "
+          f"{json.dumps(jam['bound'])} | launches {jam['launches']}")
+    k1 = drive("K1", lambda: phase_production_recipe(device), set())
+    c = k1["checks"]
+    print(f"phase 33 main path K1 (production recipe, cli.run, AnalyticalProfiles, "
+          f"{k1['stars']} stars, auto -> grid tier): cli.run {k1['cli_s']:.2f} s "
+          f"(sampling, profiles, mass posterior, {k1['bins']} radial bins), mass "
+          f"16/50/84 % {[f'{m:.4g}' for m in k1['mass']]} Msun | 64 seeded walkers: "
+          f"float64 vs JAX max |d| direct {c['direct f64']:.3g} grid {c['grid f64']:.3g}"
+          f" | float32 vs JAX direct {c['direct f32']:.4g} grid {c['grid f32']:.4g} | "
+          f"grid vs direct {c['grid-direct']:.4g} (spread {c['spread']:.4g}) | "
+          f"{K1_STEPS['n_walkers']} walkers: {k1['ms_per_step']:.4f} ms/step, bitwise "
+          f"resume ok | launches {k1['launches']}")
+    k2 = drive("K2", lambda: phase_jam_recovery(device), set())
+    print(f"phase 34 main path K2 (Axisymmetric, grid tier, {k2['stars']}-star mock "
+          f"from the recipe's MGE, free mlr/barq/kappa_x/kappa_y/mbh/delta_v): "
+          f"{k2['walkers']} walkers x {k2['steps']} steps | {k2['ms_per_step']:.4f} "
+          f"ms/step | acceptance {k2['acceptance']:.3f} | truth {K2_TRUTH} inside every "
+          f"0.15-99.85 % interval {json.dumps(k2['intervals'])} | medians "
+          f"{json.dumps({k: round(v, 5) for k, v in k2['medians'].items()})} | "
+          f"launches {k2['launches']}")
+
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
@@ -2088,6 +2689,14 @@ def main(argv=None) -> int:
         profile_path("J", lambda: fit_j(n_walkers=64, n_steps=100, pos=pos,
                                         move=J_MOVE, prefix=None), 100,
                      ["model_lnlike_kernel", "sum_chunks_kernel<1>"])
+        fit_k1 = k1["fit"]
+        pos = fit_k1.get_initials(K1_STEPS["n_walkers"])
+        fit_k1(n_walkers=K1_STEPS["n_walkers"], n_steps=10, pos=pos, prefix=None)
+        profile_path("K1", lambda: fit_k1(n_walkers=K1_STEPS["n_walkers"], n_steps=60,
+                                          pos=pos, prefix=None), 60, [])
+        fit_k2 = k2["fit"]
+        profile_path("K2", lambda: fit_k2(n_walkers=K2_RUN["n_walkers"], n_steps=60,
+                                          pos=k2["pos"], prefix=None), 60, [])
         from mcmc_dynamics_tpu_torch import pipelines
 
         for path in ("I1", "I2"):

@@ -7,6 +7,7 @@ Run from the root of the repository, on the CPU (float64):
     python3 chip_smoke_reference.py            # every path
     python3 chip_smoke_reference.py F1 G1 H    # some of them
     python3 chip_smoke_reference.py I1 I2 --write   # also rewrite the bins' bands
+    python3 chip_smoke_reference.py K --write        # the JAM lnprob values
 
 It sets up each path as ``chip_smoke.py`` does (the same catalog, priors,
 initial walkers, walker and step counts) through the JAX package
@@ -26,7 +27,12 @@ sigma_max and v_sys medians with their bands (the median +- half the 16-84 %
 half-width; ``--write`` stores them in ``chip_smoke_binned_reference.json``,
 which ``chip_smoke.py`` reads), and path J (the omega Cen fixed-centre recipe
 through ``sample_to_convergence`` with chip_smoke's DE/snooker mixture) as
-the steps the JAX package needs to converge (``chip_smoke.J_JAX_STEPS``).
+the steps the JAX package needs to converge (``chip_smoke.J_JAX_STEPS``),
+and K: the JAM models' batched lnprob on both tiers at the seeded walkers of
+chip_smoke.py's phase 32 (bench.py's validate set-up: Axisymmetric with a free
+black hole, AnalyticalProfiles, a two-population ChemoProfiles) and of path K1
+(the production recipe, ``example/omega_cen_config.json``, at 64 walkers from
+its initials), which ``K --write`` stores in ``chip_smoke_jam_reference.json``.
 This is where those bounds come from.  The SingleStars background
 is evaluated by the port's float64 plain version of the KDE on the CPU (the
 same function; the JAX package's own numpy path would hold a 1.3 GB matrix at
@@ -46,6 +52,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("JAX_ENABLE_X64", "1")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
@@ -243,9 +250,60 @@ def path_j():
           f"{discard} {json.dumps({k: round(float(v), 4) for k, v in values.items()})}")
 
 
+def jax_jam_lnprob(fit, pos, tier, block=8):
+    """The JAX package's batched lnprob on ``tier``, ``block`` walkers a call
+    (the direct tier's pair tables of the 6284-star recipe take ~150 MB a
+    walker in float64)."""
+    os.environ["MCMC_TPU_JAM"] = tier
+    try:
+        if (fit._jam_grid_spec() is None) != (tier == "direct"):
+            raise AssertionError(f"tier {tier} not taken")
+        fn = jax.jit(fit.build_lnprob_batched())
+        return np.concatenate([np.asarray(fn(jnp.asarray(pos[i:i + block])))
+                               for i in range(0, len(pos), block)])
+    finally:
+        del os.environ["MCMC_TPU_JAM"]
+
+
+def path_k():
+    """The JAM lnprob values phases 32 and 33 hold the port to."""
+    import mcmc_dynamics_tpu as pkg
+    import mcmc_dynamics_tpu.models  # noqa: F401
+    import mcmc_dynamics_tpu.units  # noqa: F401
+    import mcmc_dynamics_tpu.utils  # noqa: F401
+
+    out = {"validate": {}}
+    for kind in chip_smoke.JAM_KINDS:
+        t0 = time.perf_counter()
+        fit = chip_smoke.jam_fit(kind, pkg)
+        free = list(fit.compiled.free_names)
+        pos = chip_smoke.jam_walkers(kind, free)
+        entry = {"free": free, "walkers": pos.tolist()}
+        for tier in ("direct", "grid"):
+            entry[tier] = jax_jam_lnprob(fit, pos, tier).tolist()
+        out["validate"][kind] = entry
+        print(f"K {kind}: {np.isfinite(entry['direct']).sum()} of {len(pos)} walkers "
+              f"finite | grid - direct max "
+              f"{np.nanmax(np.abs(np.subtract(entry['grid'], entry['direct']))):.4g} | "
+              f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fit = chip_smoke.k1_fit(pkg)
+    pos = fit.get_initials(chip_smoke.JAM_WALKERS)
+    entry = {"free": list(fit.compiled.free_names), "walkers": pos.tolist()}
+    for tier in ("grid", "direct"):
+        entry[tier] = jax_jam_lnprob(fit, pos, tier).tolist()
+    out["recipe"] = entry
+    print(f"K recipe: {fit.n_data} stars | lnprob {np.min(entry['direct']):.2f} to "
+          f"{np.max(entry['direct']):.2f} | grid - direct max "
+          f"{np.max(np.abs(np.subtract(entry['grid'], entry['direct']))):.4g} | "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    which = args or ["D", "E1", "E2", "F1", "F2", "G1", "G2", "H", "I1", "I2", "J"]
+    which = args or ["D", "E1", "E2", "F1", "F2", "G1", "G2", "H", "I1", "I2", "J",
+                     "K"]
     if "D" in which:
         path_d()
     if {"E1", "E2"} & set(which):
@@ -272,6 +330,11 @@ def main():
         print(f"wrote {chip_smoke.BINNED_REFERENCE.name}: {sorted(stored)}")
     if "J" in which:
         path_j()
+    if "K" in which:
+        jam = path_k()
+        if "--write" in sys.argv[1:]:
+            chip_smoke.JAM_REFERENCE.write_text(json.dumps(jam) + "\n")
+            print(f"wrote {chip_smoke.JAM_REFERENCE.name}")
     return 0
 
 

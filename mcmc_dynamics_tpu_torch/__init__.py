@@ -23,6 +23,11 @@ convergence (``Runner.sample_to_convergence``):
   and :class:`~.models.ConstantFitGB` (the density-mixture kernel);
 * the field-star backgrounds :class:`~.background.Gaussian` and
   :class:`~.background.SingleStars` (the log-sum-exp KDE kernel);
+* the axisymmetric Jeans models :class:`~.models.Axisymmetric`,
+  :class:`~.models.AnalyticalProfiles` and :class:`~.models.ChemoProfiles`
+  (MGE mass and tracer models, a batched moment engine and a polar-grid tier
+  for large catalogs, plain torch) and the production command
+  ``python -m mcmc_dynamics_tpu_torch.cli.run <config.json>``;
 * the binned production pipeline :func:`~.pipelines.fit_radial_bins` (every
   radial bin's ensemble in one loop on the sampler's batch axis), with the
   native radial binning and catalog cache (:mod:`.native`) and the mock-data
@@ -54,6 +59,7 @@ __all__ = ["units", "Parameter", "Parameters", "DataReader", "Table",
            "make_mock_cluster", "resolve_device", "default_dtype",
            "ModelFit", "ModelFitGB", "ModelFitConstantBackground",
            "DoubleModelFit", "DoubleModelFitGB", "ConstantFit", "ConstantFitGB",
+           "Axisymmetric", "AnalyticalProfiles", "ChemoProfiles",
            "Gaussian", "SingleStars",
            "MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
            "CONSTANT_GB", "MODEL_MIXTURE", "DOUBLE_MODEL", "DOUBLE_MODEL_GB",
@@ -84,9 +90,9 @@ def default_dtype(device) -> torch.dtype:
 # the models, backgrounds and launch counters (after resolve_device and
 # default_dtype, which they import)
 from .background import Gaussian, SingleStars  # noqa: E402
-from .models import (ConstantFit, ConstantFitGB, DoubleModelFit,  # noqa: E402
-                     DoubleModelFitGB, ModelFit, ModelFitConstantBackground,
-                     ModelFitGB)
+from .models import (AnalyticalProfiles, Axisymmetric, ChemoProfiles,  # noqa: E402
+                     ConstantFit, ConstantFitGB, DoubleModelFit, DoubleModelFitGB,
+                     ModelFit, ModelFitConstantBackground, ModelFitGB)
 from .ops import (BACKGROUND_LSE, CONSTANT_GB, CONSTANT_GB_V2,  # noqa: E402
                   CONSTANT_MIXTURE, DOUBLE_MODEL, DOUBLE_MODEL_GB, MODEL_FREECENTER,
                   MODEL_GB_V2, MODEL_LNLIKE, MODEL_MIXTURE, MODEL_SUFFICIENT,

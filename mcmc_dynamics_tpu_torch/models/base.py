@@ -263,13 +263,21 @@ class Runner:
         return torch.where(torch.isfinite(lp), lp + ll,
                            torch.full_like(lp, -math.inf))[0]
 
+    def lnprob_cache_salt(self) -> tuple:
+        """Hook: the model's settings besides its parameters that
+        ``build_lnprob_batched`` reads (the JAM models' MGE, quadrature orders,
+        chunks and tier knobs); none by default."""
+        return ()
+
     def batched_lnprob(self) -> Callable:
         """The batched lnprob the sampler runs: ``build_lnprob_batched``,
-        rebuilt only when the parameters or the tier choice
-        (``MCMC_TPU_LNPROB``) change.  Building it is the set-up cost of a
-        tier (the tensor tier's tables); later calls return the same one."""
+        rebuilt only when the parameters, the tier choice
+        (``MCMC_TPU_LNPROB``) or :meth:`lnprob_cache_salt` change.  Building
+        it is the set-up cost of a tier (the tensor tier's tables); later
+        calls return the same one."""
         _ = self.compiled  # refresh fingerprint
-        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"))
+        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"),
+               self.lnprob_cache_salt())
         cached = self._lnprob_batched_cache
         if cached is None or cached[0] != key:
             cached = (key, self.build_lnprob_batched())

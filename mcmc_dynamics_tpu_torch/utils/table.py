@@ -178,12 +178,22 @@ class Table:
 
     @classmethod
     def _from_csv(cls, text: str, names=None, delimiter=",") -> "Table":
-        import pandas as pd
-        df = pd.read_csv(io.StringIO(text), header=None if names else 0,
-                         names=names, sep=delimiter)
+        """CSV text -> Table with the csv module (pandas is not a dependency
+        of the port): a header row unless ``names`` is given; each column
+        int64 if every field parses as an integer, float64 if every field
+        parses as a number (an empty field reads as NaN), else strings."""
+        import csv
+
+        rows = [row for row in csv.reader(io.StringIO(text), delimiter=delimiter)
+                if row]
+        if names is None:
+            header, rows = [h.strip() for h in rows[0]], rows[1:]
+        else:
+            header = list(names)
         out = cls()
-        for name in df.columns:
-            out[str(name)] = df[name].to_numpy()
+        for j, name in enumerate(header):
+            out[str(name)] = _parse_column([row[j] if j < len(row) else ""
+                                            for row in rows])
         return out
 
     @classmethod
@@ -235,6 +245,18 @@ class Table:
             unit_text = info.get("unit")
             out.units[name] = u.parse_unit(unit_text) if unit_text else u.dimensionless
         return out
+
+
+def _parse_column(fields: List[str]) -> np.ndarray:
+    fields = [f.strip() for f in fields]
+    try:
+        return np.array([int(f) for f in fields], dtype=np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.array([float(f) if f else np.nan for f in fields], dtype=np.float64)
+    except ValueError:
+        return np.array(fields, dtype=object)
 
 
 def _ecsv_dtype(dt: np.dtype) -> str:

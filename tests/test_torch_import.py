@@ -9,9 +9,12 @@ evaluates the restructured mixtures of ``ops.probe_mixture``, imports
 ``pipelines``, ``native``, ``profiling``, ``sampler.diagnostics`` and
 ``cli.run_tests``, samples with a DE/snooker mixture, fits two radial bins
 with ``fit_radial_bins`` and bins radii (natively where g++ builds the
-library), and then looks for ``jax``
-and for ``mcmc_dynamics_tpu`` and its submodules in ``sys.modules`` (and
-checks that nothing imported matplotlib, which the H100 machine lacks).
+library), builds the JAM models Axisymmetric and AnalyticalProfiles (on the
+direct and the grid tier) and a two-population ChemoProfiles and evaluates
+their lnprob, imports ``cli.run`` and ``cli.cluster_elongation``, and then
+looks for ``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in
+``sys.modules`` (and checks that nothing imported matplotlib or pandas: the
+port needs neither).
 """
 
 import pathlib
@@ -108,7 +111,42 @@ binned = pipelines.fit_radial_bins(data, truth["ra_center"], truth["dec_center"]
 assert binned.n_bins == 2 and binned.chains.shape == (2, 8, 3, 4), binned.chains.shape
 assert port.utils.RadialProfile(np.arange(1.0, 101.0))(50, 0.1).max() == 1
 native.native_available()
+
+from mcmc_dynamics_tpu_torch.cli import cluster_elongation, run
+from mcmc_dynamics_tpu_torch.models import (AnalyticalProfiles, Axisymmetric,
+                                            ChemoProfiles)
+from mcmc_dynamics_tpu_torch.utils import MgeReader, Table, get_mge
+mge_lum, mge_mass = get_mge("example/data/mge.ecsv")
+table = data.data
+table["feh"] = np.where(np.arange(300) % 2, -0.5, 0.2)
+table["feherr"] = np.full(300, 0.05)
+for cls in (Axisymmetric, AnalyticalProfiles):
+    p = cls.default_parameters()
+    for name, value in (("d", 5.2), ("beta", 0.0), ("mbh", 0.0), ("rbh", 1.0),
+                        ("ra_center", truth["ra_center"]),
+                        ("dec_center", truth["dec_center"])):
+        p[name].set(value=value, fixed=True)
+    model = cls(data, parameters=p, mge_lum=mge_lum, mge_mass=mge_mass, device="cpu")
+    model.n_u, model.n_zeta = 8, 8
+    pos = torch.as_tensor(model.get_initials(4))
+    for min_stars, tier in ((4096, "direct"), (100, "grid")):
+        model.jam_grid_min_stars = min_stars
+        assert model.lnprob_tier() == tier, (cls, model.lnprob_tier())
+        assert model.batched_lnprob()(pos).shape == (4,)
+tagged = MgeReader(Table({"i": [5000.0, 800.0], "s": [10.0, 40.0], "q": [0.9, 0.9],
+                          "pop": [0, 1]}), lum=True)
+cp = ChemoProfiles.default_parameters(2)
+for name, value in (("d", 5.2), ("ra_center", truth["ra_center"]),
+                    ("dec_center", truth["dec_center"])):
+    cp[name].set(value=value, fixed=True)
+chemo = ChemoProfiles(data, mge_mass=MgeReader(Table({"i": [5000.0, 800.0],
+                                                     "s": [10.0, 40.0],
+                                                     "q": [0.9, 0.9]})),
+                      mge_lum=tagged, parameters=cp, n_pops=2, device="cpu")
+chemo.n_u, chemo.n_zeta = 8, 8
+assert chemo.batched_lnprob()(torch.as_tensor(chemo.get_initials(4))).shape == (4,)
 assert "matplotlib" not in sys.modules
+assert "pandas" not in sys.modules
 
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 loaded = sorted(m for m in sys.modules

@@ -1,0 +1,96 @@
+"""``python -m mcmc_dynamics_tpu_torch.cli.run`` on a reduced copy of the
+production recipe (``example/omega_cen_config.json``: AnalyticalProfiles on the
+omega Cen catalog) and ``cli.cluster_elongation``, on the CPU."""
+
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from mcmc_dynamics_tpu_torch.cli import cluster_elongation, run
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def reduced_recipe(tmp_path, n_stars=400, **changes):
+    """The recipe on ``n_stars`` stars of its catalog, with the quadrature at
+    n_u 16, n_zeta 24, a few steps and a small binned section."""
+    cfg = json.loads((REPO / "example" / "omega_cen_config.json").read_text())
+    lines = (REPO / cfg["data"]["file"]).read_text().splitlines()
+    keep = np.sort(np.random.default_rng(0).choice(len(lines) - 1, n_stars,
+                                                   replace=False)) + 1
+    (tmp_path / "catalog.csv").write_text(
+        "\n".join([lines[0]] + [lines[i] for i in keep]) + "\n")
+    cfg["data"]["file"] = str(tmp_path / "catalog.csv")
+    cfg["mge"] = str(REPO / cfg["mge"])
+    cfg["prefix"] = str(tmp_path / "run")
+    cfg["model_options"] = {"n_u": 16, "n_zeta": 24}
+    cfg["sampling"].update(n_walkers=16, n_steps=4, n_burn=2, n_out=2)
+    cfg["binned"].update(nstars=150, n_walkers=8, n_steps=6)
+    cfg["profiles"].update(n_samples=6, n_theta=4)
+    cfg.update(changes)
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def test_production_recipe_end_to_end(tmp_path, capsys, monkeypatch):
+    rc = run.main([str(reduced_recipe(tmp_path)), "--device", "cpu"])
+    assert rc == 0
+    with np.load(tmp_path / "run_chain.npz") as f:
+        assert f["chain"].shape == (16, 4, 9)
+        assert np.isfinite(f["chain"]).all() and np.isfinite(f["lnprob"]).all()
+    masses = np.load(tmp_path / "run_mass_posterior.npy")
+    assert masses.shape == (1000,) and np.isfinite(masses).all() and (masses > 0).all()
+    from mcmc_dynamics_tpu_torch.utils import Table
+    profile = Table.read(tmp_path / "run_profile.ecsv")
+    assert len(profile) == 200
+    for name in ("v_rot", "sigma", "sigma_upper_1s"):
+        assert np.isfinite(profile.value(name)).all()
+    binned = Table.read(tmp_path / "run_binned.csv", fmt="csv")
+    assert np.isfinite(binned.value("sigma_max median")).all()
+    best = capsys.readouterr().out.splitlines()
+    header = next(i for i, line in enumerate(best) if line.startswith("value,"))
+    assert best[header].split(",")[1:] == ["mlr_0", "mlr_t", "mlr_inf", "r_mlr",
+                                           "barq", "kappa_x", "kappa_y", "r_kappa",
+                                           "delta_v"]
+    for name in ("chains", "corner", "overlay"):
+        assert (tmp_path / f"run_{name}.png").stat().st_size > 1000
+    # a restart from the checkpoint's last step (its figures not drawn again)
+    monkeypatch.setattr(run, "_plot", lambda *args, **kwargs: None)
+    rc = run.main([str(reduced_recipe(tmp_path)), "--device", "cpu", "--chain",
+                   str(tmp_path / "run_chain.npz"), "--skip-binned",
+                   "--skip-profiles"])
+    assert rc == 0
+
+
+@pytest.mark.parametrize("change, match", [
+    ({"parallel": {"axes": {"dp": 4}}}, "item 9"),
+    ({"sampling": {"sampler": "tempered", "n_steps": 4}}, "item 7"),
+    ({"sampling": {"sampler": "hmc", "n_steps": 4}}, "item 7"),
+])
+def test_unported_blocks_raise(tmp_path, change, match):
+    with pytest.raises(NotImplementedError, match=match):
+        run.main([str(reduced_recipe(tmp_path, **change)), "--device", "cpu"])
+
+
+def test_cluster_elongation_on_the_cpu(tmp_path, capsys):
+    rng = np.random.default_rng(1)
+    a = np.abs(rng.normal(0.0, 3.0, 500))
+    t = rng.uniform(0.0, 2.0 * np.pi, 500)
+    rows = [f"{x:.6f},{y:.6f}" for x, y in zip(a * np.cos(t), 0.6 * a * np.sin(t))]
+    catalog = tmp_path / "xy.csv"
+    catalog.write_text("x,y\n" + "\n".join(rows) + "\n")
+    out = tmp_path / "elongation.png"
+    assert cluster_elongation.main([str(catalog), "--radii", "0", "2", "5",
+                                    "--bootstrap", "--seed", "3", "-o", str(out)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    header = next(i for i, line in enumerate(lines) if line.startswith("r_min,"))
+    rows = np.array([line.split(",") for line in lines[header + 1:header + 3]], float)
+    assert rows.shape == (2, 9) and np.isfinite(rows).all()
+    assert np.all(np.abs(rows[:, 4] - np.sqrt(1 - 0.6 ** 2)) < 0.2)     # e
+    assert out.stat().st_size > 1000
