@@ -113,7 +113,28 @@ calls, and fails (non-zero exit) if any phase does:
     delta_v free on a 16384-star self-consistent mock (the recipe's MGE, the
     velocities from the port's float64 engine at a stated truth), 64 walkers
     x 1500 steps on the grid tier; every truth inside its posterior's
-    0.15-99.85 % interval.
+    0.15-99.85 % interval;
+35. main path L1, the tempered recipe: ``example/omega_cen_tempered.json``
+    without its ``parallel`` block (a 4-device mesh) and with
+    ``sampling.n_temps`` 4, through ``cli.run.main`` in this process: a
+    ladder of 4 x 32 walkers x 500 steps on kernel 1 (64 walkers a
+    half-step), kernel 1 launched 1 + 2 x 500 times by the CLI, the cold
+    chain in the omega_cen_tempered goldens, a finite log-evidence, each
+    pair's swap acceptance; ``sample_tempered`` in 17 + 23 steps through
+    ``state=`` bitwise equal to 40;
+36. main path L2, HMC: ``sample_hmc`` on the omega Cen fixed-centre recipe
+    (32 walkers, the windowed warmup of 200 + 100 steps, 300 steps, 10
+    leapfrog steps), through the generic tier's autograd (no kernel
+    launches), finite, the medians in the omega_cen_fixed goldens (as the
+    JAX package's float64 run at these settings,
+    ``chip_smoke_samplers_reference.json``);
+37. main path L3, the emcee-compatible sampler: a per-walker torch Gaussian
+    through ``torch.func.vmap`` (64 x 3000, moments within
+    tests/test_torch_moves.py's bounds), the omega Cen recipe's batched
+    lnprob with ``vectorize=True`` through kernel 1 (300 + 300 steps
+    through an in-memory Backend bitwise equal to 600 and to ``fit(...)``
+    at the seed the sampler draws, goldens), and a scipy log-prob on the
+    NumPy path.
 
 The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
@@ -139,6 +160,7 @@ route, source, launch count on the main paths, error, times and bound at
 from __future__ import annotations
 
 import json
+import logging
 import math
 import pathlib
 import statistics
@@ -2359,6 +2381,273 @@ def phase_jam_recovery(device):
 
 
 # ----------------------------------------------------------------------------- main
+# ----------------------------------------------------------------------------- samplers
+# phase 35, path L1: example/omega_cen_tempered.json through cli.run in this
+# process, without its ``parallel`` block (a tp mesh of 4) and with
+# ``sampling.n_temps`` the mesh's extent; the ladder's resume in L1_RESUME steps
+TEMPERED_RECIPE = REPO / "example" / "omega_cen_tempered.json"
+L1_RESUME = (17, 23)
+L1_TIMED_STEPS = 200
+# phase 36, path L2: HMC on A's fixed-centre recipe (the generic tier, plain
+# torch); the JAX package's float64 medians at the same settings come from
+# ``chip_smoke_reference.py L2 --write``
+L2_RUN = dict(n_walkers=32, n_warmup=200, n_steps=300, n_leapfrog=10, step_size=0.05,
+              seed=2)
+L2_BURN = 100
+SAMPLERS_REFERENCE = REPO / "chip_smoke_samplers_reference.json"
+# phase 37, path L3: the emcee-compatible sampler; the correlated 3-d Gaussian
+# of tests/test_torch_moves.py with test_posterior_matches_analytic_gaussian's
+# snooker bounds (mean, std, covariance in units of the standard deviations)
+L3_MEAN = (1.0, -2.0, 0.5)
+L3_COV = ((2.0, 0.9, 0.0), (0.9, 1.0, -0.3), (0.0, -0.3, 0.5))
+L3_GAUSS = dict(n_walkers=64, n_steps=3000, n_burn=1000, seed=7)
+L3_TOL = (0.1, 0.1, 0.15)
+L3_RUN = (300, 300)
+
+
+def tempered_config(tmp):
+    """The tempered recipe without its mesh, in ``tmp``: (config, path)."""
+    cfg = json.loads(TEMPERED_RECIPE.read_text())
+    cfg["sampling"]["n_temps"] = cfg.pop("parallel")["axes"]["tp"]
+    cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
+    cfg["prefix"] = str(pathlib.Path(tmp) / cfg["prefix"])
+    path = pathlib.Path(tmp) / "omega_cen_tempered.json"
+    path.write_text(json.dumps(cfg))
+    return cfg, path
+
+
+class _Records(logging.Handler):
+    """Keeps the records a logger emits."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def run_cli_here(argv):
+    """``cli.run.main(argv)`` in this process (its kernel launches count
+    here), with its log records; the root logger's handlers and level as
+    they were afterwards.  Returns (records, seconds)."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.cli import run as cli_run
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    records = _Records()
+    cli_logger = logging.getLogger(cli_run.__name__)
+    cli_logger.addHandler(records)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        if cli_run.main(argv) != 0:
+            raise AssertionError(f"cli.run {argv} did not return 0")
+        torch.cuda.synchronize()
+    finally:
+        cli_logger.removeHandler(records)
+        for handler in root.handlers[:]:
+            if handler not in handlers:
+                root.removeHandler(handler)
+                handler.close()
+        root.setLevel(level)
+    return records.records, time.perf_counter() - t0
+
+
+def phase_tempered_recipe(device):
+    """Phase 35, path L1: the tempered recipe through the port's CLI (the
+    ladder of 4 x 32 walkers on kernel 1, 64 walkers a half-step), the cold
+    chain inside the omega_cen_tempered goldens, its log-evidence logged,
+    kernel 1 launched 1 + 2 x n_steps times by the CLI; then
+    ``sample_tempered`` in L1_RESUME steps through ``state=`` against one
+    run, bit for bit, and a timed run of L1_TIMED_STEPS (its log-evidence
+    finite, its swap acceptance per pair printed)."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import KERNELS
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, path = tempered_config(tmp)
+        records, out["cli_s"] = run_cli_here([str(path), "--device",
+                                              torch.device(device).type, "--skip-binned"])
+        out["cli_launches"] = KERNELS["model_lnlike"].launches
+        with np.load(cfg["prefix"] + "_chain.npz") as f:
+            chain, lnprob, coords = f["chain"], f["lnprob"], f["coords"]
+    s = cfg["sampling"]
+    n_temps, n_walkers, n_steps = s["n_temps"], s["n_walkers"], s["n_steps"]
+    if chain.shape != (n_walkers, n_steps, 6) or coords.shape != (n_temps, n_walkers, 6):
+        raise AssertionError(f"L1: cold chain {chain.shape}, ladder {coords.shape}")
+    if not (np.isfinite(chain).all() and np.isfinite(lnprob).all()):
+        raise AssertionError("L1: cold chain not finite")
+    if out["cli_launches"] != 1 + 2 * n_steps:
+        raise AssertionError(f"L1: cli.run launched kernel 1 {out['cli_launches']} "
+                             f"times, expected 1 + 2 x {n_steps} (the ladder alone)")
+    if not any("log-evidence" in r.getMessage() for r in records):
+        raise AssertionError("L1: cli.run logged no log-evidence")
+    golden = json.loads(GOLDENS.read_text())["omega_cen_tempered"]
+    out["medians"] = check_goldens(chain, s["n_burn"], golden)
+
+    fit, _ = load_recipe(device, TEMPERED_RECIPE)
+    if fit.lnprob_tier() != "direct":
+        raise AssertionError(f"L1 tier {fit.lnprob_tier()}, expected direct")
+    kw = dict(n_temps=n_temps, beta_min=s["beta_min"], swap_every=s["swap_every"],
+              move=[tuple(m) for m in s["move"]])
+    pos = fit.get_initials(n_walkers)
+    whole, _ = fit.sample_tempered(n_steps=sum(L1_RESUME), pos=pos, **kw)
+    first, _ = fit.sample_tempered(n_steps=L1_RESUME[0], pos=pos, **kw)
+    second, _ = fit.sample_tempered(n_steps=L1_RESUME[1], state=first.final_state, **kw)
+    if not (np.array_equal(whole.chain, np.concatenate([first.chain, second.chain], 1))
+            and torch.equal(whole.final_state.coords, second.final_state.coords)
+            and torch.equal(whole.final_state.swaps_accepted,
+                            second.final_state.swaps_accepted)):
+        raise AssertionError(f"L1: {L1_RESUME[0]} + {L1_RESUME[1]} ladder steps through "
+                             f"state= differ from {sum(L1_RESUME)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed, out["log_z"] = fit.sample_tempered(n_steps=L1_TIMED_STEPS, pos=pos, **kw)
+    torch.cuda.synchronize()
+    out["s_per_step"] = (time.perf_counter() - t0) / L1_TIMED_STEPS
+    if not np.isfinite(out["log_z"]):
+        raise AssertionError(f"L1: log-evidence {out['log_z']}")
+    # swap acceptance per adjacent pair: accepted swaps over swap rounds x walkers
+    out["swaps"] = (timed.final_state.swaps_accepted.cpu().numpy()
+                    / (L1_TIMED_STEPS // s["swap_every"] * n_walkers)).round(4).tolist()
+    out.update(stars=fit.n_data, walkers=f"{n_temps} x {n_walkers}", steps=n_steps,
+               evals_per_s=n_temps * n_walkers / out["s_per_step"],
+               acceptance=float(np.mean(timed.acceptance_fraction)),
+               medians={k: float(v) for k, v in out["medians"].items()})
+    return out
+
+
+def phase_hmc(device):
+    """Phase 36, path L2: ``sample_hmc`` on A's recipe (windowed warmup,
+    the generic tier's autograd; no kernel), lnP finite, the medians inside
+    the omega_cen_fixed goldens (the JAX package's float64 run at these
+    settings lies inside them too: chip_smoke_samplers_reference.json)."""
+    import torch
+
+    fit, _ = load_recipe(device)
+    reference = json.loads(SAMPLERS_REFERENCE.read_text())["L2"]
+    if not reference["inside_goldens"]:
+        raise AssertionError("L2: the JAX reference lies outside the goldens; hold "
+                             "the port to its medians instead")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = fit.sample_hmc(**L2_RUN)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (np.isfinite(run.lnprobability).all() and np.isfinite(run.chain).all()):
+        raise AssertionError("L2: HMC chain or lnP not finite")
+    golden = json.loads(GOLDENS.read_text())["omega_cen_fixed"]
+    values = check_goldens(run.chain, L2_BURN, golden)
+    n_warmup = L2_RUN["n_warmup"]
+    steps = n_warmup + max(n_warmup // 2, 50) + L2_RUN["n_steps"]
+    return dict(stars=fit.n_data, walkers=L2_RUN["n_walkers"], steps=steps,
+                s_per_step=seconds / steps,
+                evals_per_s=L2_RUN["n_walkers"] * L2_RUN["n_leapfrog"] * steps / seconds,
+                acceptance=float(np.mean(run.acceptance_fraction)),
+                step_size=float(torch.exp(run.final_state.log_step)),
+                medians={k: float(v) for k, v in values.items()},
+                jax_medians=reference["medians"])
+
+
+def phase_emcee(device):
+    """Phase 37, path L3: the emcee-compatible sampler on the card: a
+    per-walker torch Gaussian through ``torch.func.vmap`` (moments in the
+    bounds), A's recipe vectorized through kernel 1 (300 + 300 steps through
+    an in-memory Backend equal 600 bit for bit, and equal ``fit(...)`` at the
+    seed the sampler draws), and a scipy log-prob on the NumPy path."""
+    import torch
+    from scipy import stats
+
+    from mcmc_dynamics_tpu_torch import default_dtype
+    from mcmc_dynamics_tpu_torch.emcee_compat import EnsembleSampler, backends
+
+    out = {}
+    dtype = default_dtype(device)        # the sampler's: float32 on the card
+    mean_t = torch.tensor(L3_MEAN, dtype=dtype, device=device)
+    prec_t = torch.tensor(np.linalg.inv(L3_COV), dtype=dtype, device=device)
+
+    def gauss(theta):
+        d = theta - mean_t
+        return -0.5 * torch.dot(d, prec_t @ d)
+
+    g = L3_GAUSS
+    sampler = EnsembleSampler(g["n_walkers"], 3, gauss, seed=g["seed"], device=device)
+    if sampler.backend_kind != "torch":
+        raise AssertionError(f"L3 Gaussian took the {sampler.backend_kind} path")
+    p0 = np.random.default_rng(0).normal(0, 1, (g["n_walkers"], 3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.run_mcmc(p0, g["n_steps"])
+    torch.cuda.synchronize()
+    out["gauss_ms"] = (time.perf_counter() - t0) / g["n_steps"] * 1e3
+    flat = sampler.get_chain(discard=g["n_burn"], flat=True).astype(np.float64)
+    cov = np.asarray(L3_COV)
+    sd = np.sqrt(np.diag(cov))
+    errs = (np.max(np.abs(flat.mean(axis=0) - L3_MEAN) / sd),
+            np.max(np.abs(flat.std(axis=0) - sd) / sd),
+            np.max(np.abs(np.cov(flat.T) - cov) / np.sqrt(np.outer(np.diag(cov),
+                                                                  np.diag(cov)))))
+    out["gauss_errs"] = [float(e) for e in errs]
+    out["gauss_acceptance"] = float(sampler.acceptance_fraction.mean())
+    if any(e >= tol for e, tol in zip(errs, L3_TOL)) or out["gauss_acceptance"] <= 0.15:
+        raise AssertionError(f"L3 Gaussian moments {out['gauss_errs']} (bounds "
+                             f"{L3_TOL}), acceptance {out['gauss_acceptance']:.3f}")
+
+    fit, sampling = load_recipe(device)
+    lnprob, n_walkers = fit.batched_lnprob(), sampling["n_walkers"]
+    pos = fit.get_initials(n_walkers)
+    ndim = pos.shape[1]
+    backend = backends.Backend()
+    first = EnsembleSampler(n_walkers, ndim, lnprob, vectorize=True, seed=5,
+                            device=device, backend=backend)
+    if first.backend_kind != "torch":
+        raise AssertionError(f"L3 vectorized recipe took the {first.backend_kind} path")
+    first.run_mcmc(pos, L3_RUN[0])
+    EnsembleSampler(n_walkers, ndim, lnprob, vectorize=True, seed=99, device=device,
+                    backend=backend).run_mcmc(None, L3_RUN[1])
+    whole = EnsembleSampler(n_walkers, ndim, lnprob, vectorize=True, seed=5,
+                            device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole.run_mcmc(pos, sum(L3_RUN))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (np.array_equal(whole.get_chain(), backend.get_chain())
+            and np.array_equal(whole.get_log_prob(), backend.get_log_prob())):
+        raise AssertionError(f"L3: {L3_RUN[0]} + {L3_RUN[1]} steps through a Backend "
+                             f"differ from {sum(L3_RUN)}")
+    # the sampler seeds its generator with its NumPy generator's first integer
+    fit_seed = int(np.random.default_rng(5).integers(0, 2 ** 31))
+    ref = fit(n_walkers=n_walkers, n_steps=sum(L3_RUN), pos=pos, seed=fit_seed,
+              prefix=None)
+    if not np.array_equal(np.swapaxes(whole.get_chain(), 0, 1), ref.chain):
+        raise AssertionError("L3: the vectorized sampler's chain differs from "
+                             "fit(...) at the same seed and start")
+    values = check_goldens(np.swapaxes(whole.get_chain(), 0, 1), sampling["n_burn"],
+                           json.loads(GOLDENS.read_text())["omega_cen_fixed"])
+
+    def scipy_lnprob(theta):
+        return float(stats.multivariate_normal.logpdf(theta, L3_MEAN, cov))
+
+    host = EnsembleSampler(16, 3, scipy_lnprob, seed=1, device=device)
+    if host.backend_kind != "numpy":
+        raise AssertionError(f"L3: a scipy log-prob took the {host.backend_kind} path")
+    host.run_mcmc(np.random.default_rng(1).normal(size=(16, 3)), 20)
+    if not np.isfinite(host.get_log_prob()).all():
+        raise AssertionError("L3: the NumPy path's chain is not finite")
+    out.update(stars=fit.n_data, walkers=n_walkers, steps=sum(L3_RUN),
+               s_per_step=seconds / sum(L3_RUN),
+               evals_per_s=n_walkers * sum(L3_RUN) / seconds,
+               acceptance=float(whole.acceptance_fraction.mean()),
+               medians={k: float(v) for k, v in values.items()})
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2405,10 +2694,12 @@ def main(argv=None) -> int:
     launches = dict.fromkeys(KERNELS, 0)
     smi = phase_environment()
     big, half = (16384, 10_000, 240), (128, 20_480, 0)
-    path_shape = (32, 6284, 116)                # paths A and D: 6400 stars
+    path_shape = (32, 6284, 116)                # paths A, D and L3: 6400 stars
+    ladder_shape = (64, 6284, 116)              # path L1: 4 levels x 16 walkers
     direct = pair_kernel_phase(
         2, "model_lnlike", model_lnlike_batched, model_lnlike_reference,
-        direct_inputs(device), (big, path_shape), DIRECT_TOL, rows_k=6, cols_k=6)
+        direct_inputs(device), (big, path_shape, ladder_shape), DIRECT_TOL, rows_k=6,
+        cols_k=6)
     batch_invariance(2, "model_lnlike", model_lnlike_batched, direct_inputs(device), big)
     mock_b, truth = mock_fit(device, n_stars=100_000, seed=5)
     tensor, b_stats = phase_tensor_kernel(device, mock_b)
@@ -2658,6 +2949,31 @@ def main(argv=None) -> int:
           f"{json.dumps({k: round(v, 5) for k, v in k2['medians'].items()})} | "
           f"launches {k2['launches']}")
 
+    l1 = drive("L1", lambda: phase_tempered_recipe(device), {"model_lnlike"})
+    path_line(35, "L1 (omega_cen_tempered.json without its mesh, n_temps 4, cli.run in "
+              "this process, kernel 1 at 64 x 6284)", l1,
+              f" | cli.run {l1['cli_s']:.2f} s, kernel 1 {l1['cli_launches']} launches "
+              f"(1 + 2 x 500, the ladder alone) | goldens ok | over the timed "
+              f"{L1_TIMED_STEPS} steps: log-evidence {l1['log_z']:.4f}, swap "
+              f"acceptance per pair {l1['swaps']} | {L1_RESUME[0]} + {L1_RESUME[1]} steps through state= bitwise equal "
+              f"{sum(L1_RESUME)} | ms/step over {L1_TIMED_STEPS} steps")
+    l2 = drive("L2", lambda: phase_hmc(device), set())
+    path_line(36, "L2 (sample_hmc on the omega Cen recipe, generic tier autograd, no "
+              "kernel)", l2, f" (warmup {L2_RUN['n_warmup']} + "
+              f"{max(L2_RUN['n_warmup'] // 2, 50)} + {L2_RUN['n_steps']}, "
+              f"{L2_RUN['n_leapfrog']} leapfrog steps; evals/s counts gradient "
+              f"evaluations) | step size {l2['step_size']:.4g} | goldens ok | JAX "
+              f"float64 medians {json.dumps({k: round(v, 4) for k, v in l2['jax_medians'].items()})}")
+    l3 = drive("L3", lambda: phase_emcee(device), {"model_lnlike"})
+    path_line(37, "L3 (emcee_compat.EnsembleSampler, vectorized on the omega Cen "
+              "recipe, kernel 1)", l3,
+              f" | {L3_RUN[0]} + {L3_RUN[1]} steps through a Backend bitwise equal "
+              f"{sum(L3_RUN)} and equal fit(...) | goldens ok | torch.func.vmap "
+              f"Gaussian {L3_GAUSS['n_walkers']} x {L3_GAUSS['n_steps']}: "
+              f"{l3['gauss_ms']:.4f} ms/step, acceptance {l3['gauss_acceptance']:.3f}, "
+              f"|mean|, std, cov errors {[round(e, 4) for e in l3['gauss_errs']]} "
+              f"(bounds {L3_TOL}) | scipy log-prob -> numpy path")
+
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
@@ -2697,6 +3013,23 @@ def main(argv=None) -> int:
         fit_k2 = k2["fit"]
         profile_path("K2", lambda: fit_k2(n_walkers=K2_RUN["n_walkers"], n_steps=60,
                                           pos=k2["pos"], prefix=None), 60, [])
+        fit_l1, _ = load_recipe(device, TEMPERED_RECIPE)
+        pos = fit_l1.get_initials(32)
+        l1_kw = dict(n_temps=4, beta_min=0.01, swap_every=5, pos=pos,
+                     move=[("stretch", 0.5), ("de", 0.5)])
+        fit_l1.sample_tempered(n_steps=20, **l1_kw)
+        profile_path("L1", lambda: fit_l1.sample_tempered(n_steps=100, **l1_kw), 100,
+                     ["model_lnlike_kernel", "sum_chunks_kernel<1>"])
+        profile_path("L2 (no warmup)", lambda: fit_a.sample_hmc(
+            **dict(L2_RUN, n_warmup=0, n_steps=20)), 20, [])
+        from mcmc_dynamics_tpu_torch.emcee_compat import EnsembleSampler
+
+        pos = fit_a.get_initials(64)
+        emcee = EnsembleSampler(64, 6, fit_a.batched_lnprob(), vectorize=True,
+                                device=device)
+        emcee.run_mcmc(pos, 20)
+        profile_path("L3", lambda: emcee.run_mcmc(None, 100), 100,
+                     ["model_lnlike_kernel", "sum_chunks_kernel<1>"])
         from mcmc_dynamics_tpu_torch import pipelines
 
         for path in ("I1", "I2"):
@@ -2709,7 +3042,7 @@ def main(argv=None) -> int:
     # (name, source, TPU kernel, row at the large shape (16384 walkers; the
     # KDE 20480 targets), rows at the main paths' shapes: (path, row), path
     # None for a kernel no model dispatches)
-    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0], [("A", direct[1])]),
+    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0], [("A", direct[1]), ("L1", direct[2]), ("L3", direct[1])]),
             ("model_tensor", "model_tensor.cu", "mcmc_dynamics_tpu/ops/model_tensor.py:487", tensor[0], [("B", tensor[1])]),
             ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0], [("D", freecenter[1])]),
             ("constant_mixture", "constant_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:148", mixture[0], [("E2", mixture[1])]),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The JAX package's answers on chip_smoke.py's paths D, E1, E2, F1, F2, G1, G2, H,
-I1, I2 and J.
+I1, I2, J, K and L2.
 
 Run from the root of the repository, on the CPU (float64):
 
@@ -8,6 +8,7 @@ Run from the root of the repository, on the CPU (float64):
     python3 chip_smoke_reference.py F1 G1 H    # some of them
     python3 chip_smoke_reference.py I1 I2 --write   # also rewrite the bins' bands
     python3 chip_smoke_reference.py K --write        # the JAM lnprob values
+    python3 chip_smoke_reference.py L2 --write       # the HMC medians
 
 It sets up each path as ``chip_smoke.py`` does (the same catalog, priors,
 initial walkers, walker and step counts) through the JAX package
@@ -32,7 +33,10 @@ and K: the JAM models' batched lnprob on both tiers at the seeded walkers of
 chip_smoke.py's phase 32 (bench.py's validate set-up: Axisymmetric with a free
 black hole, AnalyticalProfiles, a two-population ChemoProfiles) and of path K1
 (the production recipe, ``example/omega_cen_config.json``, at 64 walkers from
-its initials), which ``K --write`` stores in ``chip_smoke_jam_reference.json``.
+its initials), which ``K --write`` stores in ``chip_smoke_jam_reference.json``,
+and L2: ``Runner.sample_hmc`` on the omega Cen fixed-centre recipe at
+chip_smoke.py's ``L2_RUN`` settings, its medians and whether they lie in the
+goldens, which ``L2 --write`` stores in ``chip_smoke_samplers_reference.json``.
 This is where those bounds come from.  The SingleStars background
 is evaluated by the port's float64 plain version of the KDE on the CPU (the
 same function; the JAX package's own numpy path would hold a 1.3 GB matrix at
@@ -250,6 +254,40 @@ def path_j():
           f"{discard} {json.dumps({k: round(float(v), 4) for k, v in values.items()})}")
 
 
+def path_l2():
+    """Path L2 through the JAX package: ``sample_hmc`` on A's recipe at
+    chip_smoke's settings; its medians against the omega Cen goldens."""
+    from mcmc_dynamics_tpu.models import ModelFit
+
+    cfg = json.loads(chip_smoke.RECIPE.read_text())
+    params = ModelFit.default_parameters()
+    for name, spec in cfg["parameters"].items():
+        params[name].set(**spec)
+    fit = ModelFit(jax_reader(recipe_columns(cfg)), parameters=params,
+                   seed=cfg["sampling"]["seed"])
+    t0 = time.perf_counter()
+    run = fit.sample_hmc(**chip_smoke.L2_RUN)
+    seconds = time.perf_counter() - t0
+    chain = np.asarray(run.chain)
+    golden = json.loads(chip_smoke.GOLDENS.read_text())["omega_cen_fixed"]
+    try:
+        values = chip_smoke.check_goldens(chain, chip_smoke.L2_BURN, golden)
+        inside = True
+    except AssertionError as err:
+        print(f"path L2 (JAX, float64, CPU): {err}")
+        values = chip_smoke.check_goldens(chain, chip_smoke.L2_BURN, {})
+        inside = False
+    out = {"medians": {k: float(v) for k, v in values.items()},
+           "inside_goldens": inside,
+           "acceptance": float(np.mean(run.acceptance_fraction)),
+           "finite": bool(np.isfinite(np.asarray(run.lnprobability)).all())}
+    print(f"path L2 (JAX, float64, CPU): sample_hmc {chip_smoke.L2_RUN} | medians "
+          f"{json.dumps({k: round(v, 5) for k, v in out['medians'].items()})} | "
+          f"{'inside' if inside else 'OUTSIDE'} the omega_cen_fixed goldens | "
+          f"acceptance {out['acceptance']:.3f} | {seconds:.1f} s")
+    return out
+
+
 def jax_jam_lnprob(fit, pos, tier, block=8):
     """The JAX package's batched lnprob on ``tier``, ``block`` walkers a call
     (the direct tier's pair tables of the 6284-star recipe take ~150 MB a
@@ -303,7 +341,7 @@ def path_k():
 def main():
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     which = args or ["D", "E1", "E2", "F1", "F2", "G1", "G2", "H", "I1", "I2", "J",
-                     "K"]
+                     "K", "L2"]
     if "D" in which:
         path_d()
     if {"E1", "E2"} & set(which):
@@ -322,7 +360,7 @@ def main():
     if "H" in which:
         path_h()
     bands = {path: path_binned(path) for path in ("I1", "I2") if path in which}
-    if "--write" in sys.argv[1:]:
+    if "--write" in sys.argv[1:] and bands:
         stored = (json.loads(chip_smoke.BINNED_REFERENCE.read_text())
                   if chip_smoke.BINNED_REFERENCE.exists() else {})
         stored.update(bands)
@@ -330,6 +368,12 @@ def main():
         print(f"wrote {chip_smoke.BINNED_REFERENCE.name}: {sorted(stored)}")
     if "J" in which:
         path_j()
+    if "L2" in which:
+        l2 = path_l2()
+        if "--write" in sys.argv[1:]:
+            chip_smoke.SAMPLERS_REFERENCE.write_text(
+                json.dumps({"L2": l2}, indent=1) + "\n")
+            print(f"wrote {chip_smoke.SAMPLERS_REFERENCE.name}")
     if "K" in which:
         jam = path_k()
         if "--write" in sys.argv[1:]:

@@ -7,7 +7,10 @@ kernels written by hand in CUDA C++ (``csrc/``).
 
 What runs today, sampled by the ensemble's stretch, DE and snooker moves
 (or a weighted mixture of them), to a fixed length or to certified
-convergence (``Runner.sample_to_convergence``):
+convergence (``Runner.sample_to_convergence``), by a parallel-tempered
+ladder with its evidence (``Runner.sample_tempered``) or by HMC
+(``Runner.sample_hmc``), and behind emcee's own interface
+(:mod:`.emcee_compat`, :mod:`.emcee_backends`):
 
 * the global :class:`~.models.ModelFit` (Lynden-Bell rotation + Plummer
   dispersion) with a fixed centre (the direct walker x star kernel, the

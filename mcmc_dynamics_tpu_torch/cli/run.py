@@ -16,8 +16,8 @@ it:
   as CSV, the binned profile written as ``{prefix}_binned.csv``), not pandas;
 * the figures are drawn only where matplotlib imports, and are logged as skipped
   otherwise;
-* a ``parallel`` block and ``sampling.sampler`` = ``"tempered"``/``"hmc"`` raise
-  :class:`NotImplementedError` (ROADMAP.md, queue 1, items 9 and 7).
+* a ``parallel`` block raises :class:`NotImplementedError` (ROADMAP.md, queue 1,
+  item 9): run the tempered ladder on one device with ``sampling.n_temps``.
 """
 
 from __future__ import annotations
@@ -201,15 +201,14 @@ def main(argv=None):
     if sampler_kind not in ("ensemble", "tempered", "hmc"):
         raise ValueError(f"Unknown sampling.sampler '{sampler_kind}' "
                          "(supported: ensemble, tempered, hmc).")
-    if sampler_kind != "ensemble":
-        raise NotImplementedError(
-            f"sampling.sampler = '{sampler_kind}' is not ported to torch yet "
-            "(ROADMAP.md, queue 1, item 7); use the ensemble sampler.")
     n_steps = sampling.get("n_steps", 500)
     if isinstance(n_steps, str) and n_steps != "auto":
         raise ValueError(
             f"sampling.n_steps must be an integer or the string \"auto\" "
             f"(got {n_steps!r}).")
+    if n_steps == "auto" and sampler_kind != "ensemble":
+        raise ValueError('sampling.n_steps = "auto" requires the ensemble '
+                         "sampler (tau-based auto-stop).")
 
     from .. import units as u
 
@@ -255,7 +254,22 @@ def main(argv=None):
 
     move = _normalize_move(sampling.get("move"))
     n_burn = sampling.get("n_burn", 100)
-    if n_steps == "auto":
+    if sampler_kind == "tempered":
+        sampler, log_z = fit.sample_tempered(
+            n_walkers=sampling.get("n_walkers", 100), n_steps=n_steps,
+            n_temps=int(sampling.get("n_temps", 8)),
+            beta_min=float(sampling.get("beta_min", 1e-3)),
+            swap_every=int(sampling.get("swap_every", 5)), pos=pos, move=move)
+        logger.info("thermodynamic-integration log-evidence: %.4f", log_z)
+        fit.save_current_status(sampler, prefix=prefix)
+    elif sampler_kind == "hmc":
+        sampler = fit.sample_hmc(
+            n_walkers=sampling.get("n_walkers", 32), n_steps=n_steps,
+            n_warmup=int(sampling.get("n_warmup", 200)),
+            n_leapfrog=int(sampling.get("n_leapfrog", 10)),
+            step_size=float(sampling.get("step_size", 0.05)), pos=pos)
+        fit.save_current_status(sampler, prefix=prefix)
+    elif n_steps == "auto":
         # tau-driven auto-stop: chunks of n_out until the chain certifies its
         # own convergence; max_steps bounds it
         sampler = fit.sample_to_convergence(

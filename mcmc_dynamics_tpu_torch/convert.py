@@ -16,9 +16,10 @@ import torch
 from .ops.model_tensor import ModelTensorStats
 from .parameters import Parameters
 from .sampler.stretch import EnsembleState, make_generator
+from .sampler.tempered import TemperedState
 
 __all__ = ["parameters_from_reference", "tensor_stats_from_jax",
-           "state_from_jax_checkpoint"]
+           "state_from_jax_checkpoint", "tempered_state_from_jax"]
 
 
 def parameters_from_reference(params) -> Parameters:
@@ -70,3 +71,35 @@ def state_from_jax_checkpoint(filename, *, device, dtype: torch.dtype,
             accepted=torch.as_tensor(np.asarray(f["accepted"]), dtype=torch.int32,
                                      device=device),
             step=int(f["step"]))
+
+
+def tempered_state_from_jax(state, *, device, dtype: torch.dtype,
+                            seed: int) -> TemperedState:
+    """A :class:`TemperedState` from the JAX package's ``TemperedState``
+    (coords (K, W, P), log_prob, accepted, swaps_accepted, step) or from its
+    tempered ``{prefix}_chain.npz`` (which holds no swap counts: they start
+    at 0).  The generator is seeded anew from ``seed``, as in
+    :func:`state_from_jax_checkpoint`: a valid continuation of the ladder,
+    not a bitwise one."""
+    if isinstance(state, (str, pathlib.Path)):
+        path = pathlib.Path(state)
+        with np.load(path if path.suffix == ".npz" else path.with_suffix(".npz")) as f:
+            fields = {name: np.asarray(f[name])
+                      for name in ("coords", "log_prob", "accepted", "step")}
+        fields["swaps_accepted"] = np.zeros(fields["coords"].shape[0] - 1, np.int32)
+    else:
+        fields = {name: np.asarray(getattr(state, name))
+                  for name in ("coords", "log_prob", "accepted", "swaps_accepted",
+                               "step")}
+
+    def counts(name):
+        return torch.as_tensor(np.array(fields[name]), dtype=torch.int32, device=device)
+
+    return TemperedState(
+        coords=torch.as_tensor(np.array(fields["coords"], np.float64), dtype=dtype,
+                               device=device),
+        log_prob=torch.as_tensor(np.array(fields["log_prob"], np.float64),
+                                 dtype=dtype, device=device),
+        generator=make_generator(seed, device),
+        accepted=counts("accepted"), swaps_accepted=counts("swaps_accepted"),
+        step=int(fields["step"]))

@@ -1,7 +1,7 @@
 """Model base class: host shell compiling data + parameters into a batched lnprob.
 
-Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (without the tempered and
-HMC samplers and the multi-device paths, listed in ROADMAP.md).  Observables
+Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (without the multi-device
+paths, listed in ROADMAP.md).  Observables
 are converted to internal units on the host in float64 and then placed on the
 model's device in its working dtype.  A batched lnprob maps a (W, K) walker
 block to (W,); the sampler runs it on half-ensembles.  Checkpoints are
@@ -28,8 +28,11 @@ from .. import units as u
 from ..expressions import compile_torch
 from ..parameters import CompiledParameters, Parameters
 from ..sampler.diagnostics import AutocorrError, autocorr_time
+from ..sampler.hmc import init_hmc, run_hmc
 from ..sampler.stretch import (EnsembleState, init_state, make_generator,
                                run_ensemble)
+from ..sampler.tempered import (TemperedState, init_tempered, log_evidence,
+                                make_beta_ladder, run_tempered)
 from ..utils.coordinates import get_amplitude_and_angle, xy_offset_rad
 from ..utils.data import DataReader
 from ..utils.table import Table
@@ -283,6 +286,13 @@ class Runner:
             cached = (key, self.build_lnprob_batched())
             self._lnprob_batched_cache = cached
         return cached[1]
+
+    def build_lnprob_differentiable(self) -> Callable:
+        """The batched lnprob (W, K) -> (W,) that HMC differentiates: the
+        generic tier, plain torch (the counterpart of the JAX package's
+        per-walker closure ``build_lnprob``).  The kernel and table tiers
+        have no backward, so they stay off the gradient path."""
+        return Runner.build_lnprob_batched(self)
 
     def _validated_initials(self, pos, n_walkers: int) -> np.ndarray:
         """Draw (if needed) and validate (W, K) starting positions: right
@@ -552,6 +562,81 @@ class Runner:
                 "certifying convergence (max tau = %.1f).", max_steps, tau_max)
         return sampler
 
+    def sample_hmc(self, n_walkers: int = 32, n_steps: int = 500,
+                   n_warmup: int = 200, n_leapfrog: int = 10,
+                   step_size: float = 0.05, pos=None,
+                   seed: Optional[int] = None) -> "SamplerResult":
+        """Gradient-based HMC sampling of this model's posterior through
+        :meth:`build_lnprob_differentiable`; returns a :class:`SamplerResult`.
+
+        Windowed warmup (diagonal): phase 1 adapts the step size under the
+        identity metric while it records the walkers; the per-parameter
+        variance over the second half of that window (pooled over walkers,
+        floored at 1e-12) becomes the inverse mass, and phase 2 re-adapts
+        the step size under it before sampling.  Fewer than 20 samples a
+        parameter cannot support a variance: the identity metric is kept
+        and phase 2 skipped."""
+        if pos is None:
+            pos = self.get_initials(n_walkers)
+        lnprob = self.build_lnprob_differentiable()
+        gen = make_generator(self.seed if seed is None else seed, self.device)
+        state = init_hmc(lnprob, self._to_device(pos), gen, step_size=step_size)
+        warm = run_hmc(lnprob, state, n_steps=n_warmup, n_leapfrog=n_leapfrog,
+                       adapt=True, store_chain=True)
+        w_samples = warm.chain.cpu().numpy()[:, n_warmup // 2:, :]
+        flat = w_samples.reshape(-1, w_samples.shape[-1])
+        if flat.shape[0] >= 20 * flat.shape[1]:
+            mass_inv = self._to_device(np.maximum(flat.var(axis=0), 1e-12))
+            warm = run_hmc(lnprob, warm.final, n_steps=max(n_warmup // 2, 50),
+                           n_leapfrog=n_leapfrog, mass_inv=mass_inv, adapt=True,
+                           store_chain=False)
+        else:
+            mass_inv = None
+        res = run_hmc(lnprob, warm.final, n_steps=n_steps, n_leapfrog=n_leapfrog,
+                      mass_inv=mass_inv)
+        return SamplerResult(chain=res.chain.cpu().numpy(),
+                             lnprobability=res.log_prob.cpu().numpy(),
+                             final_state=res.final,
+                             acceptance_fraction=res.acceptance_fraction.cpu().numpy())
+
+    def sample_tempered(self, n_walkers: int = 64, n_steps: int = 500,
+                        n_temps: int = 8, beta_min: float = 1e-3,
+                        swap_every: int = 5, pos=None,
+                        seed: Optional[int] = None, mesh=None,
+                        temp_axis: str = "tp", move="stretch",
+                        state: Optional[TemperedState] = None):
+        """Parallel-tempered ensemble sampling through the model's batched
+        tier (:meth:`batched_lnprob`: one call a half-step on K x W/2
+        walkers); returns (:class:`SamplerResult` of the cold chain,
+        thermodynamic-integration log-evidence).
+
+        ``state=`` resumes a prior run's ``result.final_state`` (every
+        level's walkers and the generator), continuing the ladder bit for
+        bit; ``n_temps`` is then the state's.  ``mesh=`` (one temperature a
+        device) is not ported yet."""
+        del temp_axis
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh=: the multi-device samplers are not ported to torch yet "
+                "(ROADMAP.md, queue 1, item 9).")
+        lnprob = self.batched_lnprob()
+        if state is not None:
+            betas = make_beta_ladder(state.coords.shape[0], beta_min)
+        else:
+            if pos is None:
+                pos = self.get_initials(n_walkers)
+            gen = make_generator(self.seed if seed is None else seed, self.device)
+            state, betas = init_tempered(lnprob, self._to_device(pos), gen,
+                                         n_temps=n_temps, beta_min=beta_min)
+        res = run_tempered(lnprob, state, betas, n_steps=n_steps,
+                           swap_every=swap_every, move=move)
+        result = SamplerResult(chain=res.chain.cpu().numpy(),
+                               lnprobability=res.log_prob.cpu().numpy(),
+                               final_state=res.final,
+                               acceptance_fraction=res.acceptance_fraction[0]
+                               .cpu().numpy())
+        return result, log_evidence(betas, res.mean_lnp_by_beta)
+
     # ------------------------------------------------------------------ persistence
     @staticmethod
     def save_chain(sampler, filename: str = "samplerchain.npz"):
@@ -573,10 +658,11 @@ class Runner:
                                           sampler.final_state, prefix=prefix)
 
     @staticmethod
-    def save_current_status_arrays(chain, lnprob, state: EnsembleState,
-                                   prefix: str = "sampler"):
-        """``{prefix}_chain.npz`` with the reference's keys; ``key`` holds the
-        torch generator state and ``key_impl`` is ``"torch"``."""
+    def save_current_status_arrays(chain, lnprob, state, prefix: str = "sampler"):
+        """``{prefix}_chain.npz`` with the reference's keys from an
+        :class:`EnsembleState`, a :class:`TemperedState` (coords (K, W, P))
+        or an :class:`~..sampler.hmc.HMCState`; ``key`` holds the torch
+        generator state and ``key_impl`` is ``"torch"``."""
         np.savez(f"{prefix}_chain.npz",
                  chain=np.asarray(chain), lnprob=np.asarray(lnprob),
                  key=state.generator.get_state().numpy(),

@@ -340,7 +340,16 @@ class Axisymmetric(Runner):
         """(W, K) -> (W,): prior, joint prior and the JAM likelihood on the
         grid or the direct tier, in walker chunks of ``jam_grid_chunk`` or
         ``lnprob_chunk``."""
-        spec = self._jam_grid_spec()
+        return self._build_jam_lnprob(self._jam_grid_spec())
+
+    def build_lnprob_differentiable(self):
+        """The direct tier, which HMC differentiates (the JAX package's
+        per-walker closure evaluates the moments at each star)."""
+        return self._build_jam_lnprob(None)
+
+    def _build_jam_lnprob(self, spec):
+        """The batched lnprob on the grid tier of ``spec``, or on the direct
+        tier for None."""
         compiled = self.compiled
         data = self.prepare_data(dict(self._data_arrays))
         extra = self._has_extra_lnprior()

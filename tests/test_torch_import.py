@@ -11,10 +11,12 @@ evaluates the restructured mixtures of ``ops.probe_mixture``, imports
 with ``fit_radial_bins`` and bins radii (natively where g++ builds the
 library), builds the JAM models Axisymmetric and AnalyticalProfiles (on the
 direct and the grid tier) and a two-population ChemoProfiles and evaluates
-their lnprob, imports ``cli.run`` and ``cli.cluster_elongation``, and then
-looks for ``jax`` and for ``mcmc_dynamics_tpu`` and its submodules in
-``sys.modules`` (and checks that nothing imported matplotlib or pandas: the
-port needs neither).
+their lnprob, imports ``cli.run`` and ``cli.cluster_elongation``, runs a
+short tempered ladder, an HMC run and an ``EnsembleSampler`` on its torch and
+its NumPy path with an in-memory ``Backend``, and then looks for ``jax`` and
+for ``mcmc_dynamics_tpu`` and its submodules in ``sys.modules`` (and checks
+that nothing imported matplotlib, pandas or h5py: the port needs none of them
+unless it draws a figure or writes an HDF5 chain).
 """
 
 import pathlib
@@ -145,6 +147,22 @@ chemo = ChemoProfiles(data, mge_mass=MgeReader(Table({"i": [5000.0, 800.0],
                       mge_lum=tagged, parameters=cp, n_pops=2, device="cpu")
 chemo.n_u, chemo.n_zeta = 8, 8
 assert chemo.batched_lnprob()(torch.as_tensor(chemo.get_initials(4))).shape == (4,)
+
+from mcmc_dynamics_tpu_torch import emcee_backends, emcee_compat
+from mcmc_dynamics_tpu_torch.sampler import hmc, tempered
+ladder, lnz = fit.sample_tempered(n_walkers=8, n_steps=3, n_temps=3, beta_min=0.1,
+                                  swap_every=1)
+assert ladder.chain.shape == (8, 3, 6) and ladder.final_state.coords.shape == (3, 8, 6)
+gradient = fit.sample_hmc(n_walkers=4, n_steps=2, n_warmup=1, n_leapfrog=2)
+assert gradient.chain.shape == (4, 2, 6), gradient.chain.shape
+for log_prob, kind in ((lambda t: -0.5 * torch.sum(t * t), "torch"),
+                       (lambda t: -0.5 * float(np.sum(np.asarray(t) ** 2)), "numpy")):
+    es = emcee_compat.EnsembleSampler(8, 2, log_prob, device="cpu",
+                                      backend=emcee_backends.Backend())
+    assert es.backend_kind == kind, es.backend_kind
+    es.run_mcmc(np.random.default_rng(0).normal(size=(8, 2)), 3)
+    assert es.get_chain().shape == (3, 8, 2)
+assert "h5py" not in sys.modules
 assert "matplotlib" not in sys.modules
 assert "pandas" not in sys.modules
 

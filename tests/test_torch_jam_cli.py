@@ -16,9 +16,10 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
-def reduced_recipe(tmp_path, n_stars=400, **changes):
+def reduced_recipe(tmp_path, n_stars=400, sampling=None, **changes):
     """The recipe on ``n_stars`` stars of its catalog, with the quadrature at
-    n_u 16, n_zeta 24, a few steps and a small binned section."""
+    n_u 16, n_zeta 24, a few steps and a small binned section; ``sampling``
+    updates the sampling block."""
     cfg = json.loads((REPO / "example" / "omega_cen_config.json").read_text())
     lines = (REPO / cfg["data"]["file"]).read_text().splitlines()
     keep = np.sort(np.random.default_rng(0).choice(len(lines) - 1, n_stars,
@@ -32,6 +33,7 @@ def reduced_recipe(tmp_path, n_stars=400, **changes):
     cfg["sampling"].update(n_walkers=16, n_steps=4, n_burn=2, n_out=2)
     cfg["binned"].update(nstars=150, n_walkers=8, n_steps=6)
     cfg["profiles"].update(n_samples=6, n_theta=4)
+    cfg["sampling"].update(sampling or {})
     cfg.update(changes)
     path = tmp_path / "config.json"
     path.write_text(json.dumps(cfg))
@@ -70,12 +72,61 @@ def test_production_recipe_end_to_end(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("change, match", [
     ({"parallel": {"axes": {"dp": 4}}}, "item 9"),
-    ({"sampling": {"sampler": "tempered", "n_steps": 4}}, "item 7"),
-    ({"sampling": {"sampler": "hmc", "n_steps": 4}}, "item 7"),
 ])
 def test_unported_blocks_raise(tmp_path, change, match):
     with pytest.raises(NotImplementedError, match=match):
         run.main([str(reduced_recipe(tmp_path, **change)), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("sampling", [
+    dict(sampler="tempered", n_steps=3, n_temps=2, beta_min=0.1, swap_every=2),
+    dict(sampler="hmc", n_steps=3, n_warmup=2, n_leapfrog=2, step_size=0.01),
+])
+def test_tempered_and_hmc_samplers(tmp_path, caplog, sampling):
+    """``sampling.sampler`` = tempered / hmc on the reduced recipe: the
+    checkpoint (the cold chain for the ladder), the mass posterior and the
+    log's evidence line."""
+    path = reduced_recipe(tmp_path, sampling=sampling)
+    with caplog.at_level("INFO", logger="mcmc_dynamics_tpu_torch.cli.run"):
+        assert run.main([str(path), "--device", "cpu", "--skip-binned",
+                         "--skip-profiles"]) == 0
+    with np.load(tmp_path / "run_chain.npz") as f:
+        assert f["chain"].shape == (16, 3, 9)
+        assert np.isfinite(f["chain"]).all() and np.isfinite(f["lnprob"]).all()
+        assert str(f["key_impl"]) == "torch"
+        if sampling["sampler"] == "tempered":
+            assert f["coords"].shape == (2, 16, 9)
+    assert np.isfinite(np.load(tmp_path / "run_mass_posterior.npy")).all()
+    if sampling["sampler"] == "tempered":
+        assert "thermodynamic-integration log-evidence" in caplog.text
+
+
+def test_auto_steps_need_the_ensemble_sampler(tmp_path):
+    path = reduced_recipe(tmp_path, sampling=dict(sampler="hmc", n_steps="auto"))
+    with pytest.raises(ValueError, match="ensemble"):
+        run.main([str(path), "--device", "cpu"])
+
+
+def tempered_recipe_copy(tmp_path, n_steps):
+    """``example/omega_cen_tempered.json`` without its ``parallel`` block (a
+    device mesh), with ``sampling.n_temps`` the mesh's extent, 4, and
+    ``n_steps`` steps."""
+    cfg = json.loads((REPO / "example" / "omega_cen_tempered.json").read_text())
+    tp = cfg.pop("parallel")["axes"]["tp"]
+    cfg["sampling"].update(n_temps=tp, n_steps=n_steps, n_burn=n_steps // 2)
+    cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
+    cfg["prefix"] = str(tmp_path / "tempered")
+    path = tmp_path / "tempered.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def test_tempered_recipe_without_its_mesh(tmp_path):
+    assert run.main([str(tempered_recipe_copy(tmp_path, 3)), "--device", "cpu",
+                     "--skip-binned"]) == 0
+    with np.load(tmp_path / "tempered_chain.npz") as f:
+        assert f["chain"].shape == (32, 3, 6) and f["coords"].shape == (4, 32, 6)
+        assert np.isfinite(f["lnprob"]).all()
 
 
 def test_cluster_elongation_on_the_cpu(tmp_path, capsys):
