@@ -134,7 +134,34 @@ calls, and fails (non-zero exit) if any phase does:
     lnprob with ``vectorize=True`` through kernel 1 (300 + 300 steps
     through an in-memory Backend bitwise equal to 600 and to ``fit(...)``
     at the seed the sampler draws, goldens), and a scipy log-prob on the
-    NumPy path.
+    NumPy path;
+38. main path M1, A's recipe on meshes of ranks (one process a rank;
+    phases 38-40 share one world of four processes that this script spawns
+    with the torchrun environment, whose ranks share the one card, their
+    collectives over gloo staged through the host): dp 2 x sp 2 (kernel 1
+    on 1571-star slices, the partial sums all-reduced; the medians in A's
+    goldens, the final lnP against the full catalog's kernel 1 at
+    DIRECT_TOL, a checkpoint at 300 steps resumed bit for bit) and dp 4 x sp
+    1, and dp 1 x sp 1 in this script (a world of one rank: NCCL), the last
+    two path A's chain bit for bit; every rank's chain identical;
+39. main path M2, every partial tier on four star slices (dp 1 x sp 4 in
+    the world of four): the models and walkers of paths A (kernel 1), D (3), E1
+    (5), F1 and F2 (6, both backgrounds), G1 (7), G2 (8) and K2 (the JAM
+    grid tier, plain torch), each sampled 20 steps on the star-sharded mesh
+    (K2 2), each rank's slice against the float64 plain version and the
+    slices' all-reduced sum against one full-catalog call, at the path's
+    gate; rank 0 times each kernel on its slice;
+40. main path M3, ``example/omega_cen_tempered.json`` as written, its
+    ``parallel: {axes: {tp: 4}}`` block included, through ``cli.run.main``
+    in the world of four, one temperature a rank: kernel 1 1 + 2 x 500
+    times a rank, the cold chain in the goldens, a finite log-evidence,
+    every pair swapping; 25 + 35 ladder steps through ``state=`` bitwise
+    equal to 60;
+41. main path M4, path I1 with its bins over dp 2 (a world of two): both
+    ranks' chains path I1's bit for bit.
+
+With ``--profile`` rank 0 of each world (and the script for M1's one rank)
+also traces 100 steps of paths M1 and M3 and M4's pipeline.
 
 The walker x star phases (2, 6, 14-17, 25) include walkers at r_peak 1e19,
 1e20 and 1e37 (the double models also 1e13, 3e38 and 1e-3), where float32
@@ -534,7 +561,7 @@ def phase_recipe(device):
         raise AssertionError("compute_bestfit_values not finite")
     acc = float(np.mean(run.acceptance_fraction))
     return dict(stars=fit.n_data, walkers=n_walkers, steps=n_steps,
-                s_per_step=s_per_step, acceptance=acc, medians=values)
+                s_per_step=s_per_step, acceptance=acc, medians=values, chain=run.chain)
 
 
 def phase_table_path(device, fit, truth, tier, n_walkers=1024, n_steps=200):
@@ -2648,10 +2675,578 @@ def phase_emcee(device):
     return out
 
 
+# ----------------------------------------------------------------------------- meshes
+# phases 38-41: worlds of several ranks, one process a rank, spawned from this
+# script with the torchrun environment (RANK, WORLD_SIZE, LOCAL_RANK,
+# MASTER_ADDR/PORT on localhost) and a time limit of their own.  On the one
+# card the ranks of a world share it: the mesh's collectives go over gloo
+# with host staging, and a world of one rank takes NCCL.  Each rank writes
+# its numbers (and its chains) under the world's directory; a rank that
+# fails ends the world, the phase and the run.
+WORLD_TIMEOUT_S = 300
+M1_N_OUT = 300                      # path M1 (a): the checkpoint it resumes from
+M1_RESUME_EXTRA = 50
+# path M2: every partial tier, on the walkers and catalogs of the paths named
+# (path, kernel, tier, walkers, kernel's rows and columns for the bound,
+# (module, wrapper) the plain version stands in for)
+M2_CASES = (
+    ("A", "model_lnlike", "direct", 64, 6, 6, ("model", "model_lnlike_batched")),
+    ("D", "model_freecenter", "freecenter", 64, 8, 8,
+     ("model", "model_freecenter_lnlike_batched")),
+    ("E1", "constant_gb", "gb", 256, 7, 7, ("constant", "constant_gb_lnlike_batched")),
+    ("F1", "model_mixture", "model_mixture", 256, 8, 9,
+     ("model", "model_mixture_lnlike_batched")),
+    ("F2", "model_mixture_lnb", "model_mixture", 256, 9, 7,
+     ("model", "model_mixture_lnlike_batched")),
+    ("G1", "double_model", "double", 64, 6, 9, ("double_model", "double_model_lnlike_batched")),
+    ("G2", "double_model_gb", "double_gb", 256, 8, 12,
+     ("double_model", "double_model_gb_lnlike_batched")),
+    ("K2", None, "grid", 64, 0, 0, None))
+M2_STEPS = 20
+M2_K2_STEPS = 2
+M2_SP = 4
+M3_RESUME = (25, 35)
+PROFILE_STEPS = 100
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _zero_counts():
+    from mcmc_dynamics_tpu_torch.ops import KERNELS
+
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def _counts():
+    from mcmc_dynamics_tpu_torch.ops import KERNELS
+
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def spawn_world(phase, n_ranks, device, out, profiling=False, timeout=WORLD_TIMEOUT_S):
+    """Run world ``phase`` as ``n_ranks`` processes of this script (``--world
+    phase device rank n out profiling``) with the torchrun environment
+    (``profiling``: rank 0 traces its main path too); each rank's
+    result is ``out/<phase>_<rank>.json``.  A rank that exits non-zero, or the
+    time limit, kills every rank and raises with their last output."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out.mkdir(parents=True, exist_ok=True)
+    procs, logs = [], []
+    for rank in range(n_ranks):
+        # one host thread a rank: the ranks share the host's cores
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(n_ranks), LOCAL_WORLD_SIZE=str(n_ranks),
+                   RANK=str(rank), LOCAL_RANK=str(rank), OMP_NUM_THREADS="1")
+        log = out / f"{phase}_{n_ranks}_{rank}.log"
+        logs.append(log)
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--world", phase,
+                 str(device), str(rank), str(n_ranks), str(out), str(int(profiling))],
+                cwd=out, env=env, stdout=f, stderr=subprocess.STDOUT))
+    t_start = time.monotonic()
+    deadline = t_start + timeout
+    failed = None
+    while any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            failed = "a rank failed"
+            break
+        if time.monotonic() > deadline:
+            failed = f"the world ran past {timeout} s"
+            break
+        time.sleep(0.1)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if failed is None and any(p.returncode for p in procs):
+        failed = "a rank failed"
+    if failed:
+        tails = "\n".join(f"--- rank {r} (rc {p.returncode}):\n"
+                          + "\n".join(log.read_text().splitlines()[-25:])
+                          for r, (p, log) in enumerate(zip(procs, logs)))
+        raise AssertionError(f"world {phase} of {n_ranks} ranks: {failed}\n{tails}")
+    results = [json.loads((out / f"{phase}_{r}.json").read_text()) for r in range(n_ranks)]
+    results[0]["world_s"] = time.monotonic() - t_start
+    return results
+
+
+def world_main(argv) -> int:
+    """One rank of a world: ``--world <phase> <device> <rank> <n> <dir>
+    <profiling>``."""
+    import torch
+
+    phase, device, rank, n_ranks, out, profiling = argv
+    out = pathlib.Path(out)
+    torch.set_num_threads(1)
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            print("chip_smoke --world: no CUDA device", file=sys.stderr)
+            return 1
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:                   # a rehearsal on the CPU: nothing to wait for
+        torch.cuda.synchronize = lambda device=None: None
+    from mcmc_dynamics_tpu_torch.parallel import distributed
+
+    distributed.initialize()                   # the torchrun environment
+    try:
+        result = WORLDS[phase](device, int(rank), int(n_ranks), out)
+        if profiling == "1":
+            result["profile"] = PROFILES[phase](device, int(rank), int(n_ranks))
+        distributed.barrier()        # every rank done with its collectives
+    finally:
+        distributed.shutdown()
+    (out / f"{phase}_{rank}.json").write_text(json.dumps(result))
+    return 0
+
+
+def m1_run(label, shape, device, out, rank):
+    """Path M1 (``label``) in one rank: A's recipe on a dp x sp mesh of
+    ``shape``, one timed run.  (a), dp 2 x sp 2: kernel 1 on star slices;
+    the run's checkpoint at M1_N_OUT steps, resumed for M1_RESUME_EXTRA
+    steps, bit for bit the run's next steps; its final lnP against the full
+    catalog's kernel 1.  The chain is saved for the parent."""
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh
+
+    t_start = time.perf_counter()
+    mesh = make_mesh(("dp", "sp"), shape, device=device)
+    fit, sampling = load_recipe(device)
+    n_walkers, n_steps = sampling["n_walkers"], sampling["n_steps"]
+    pos = fit.get_initials(n_walkers)
+    _zero_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    run = fit(n_walkers=n_walkers, n_steps=n_steps, n_out=sampling["n_out"], pos=pos,
+              prefix=None, mesh=mesh)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    err = None
+    if label == "a":
+        prefix = str(out / "m1a")
+        first = fit(n_walkers=n_walkers, n_steps=M1_N_OUT, n_out=M1_N_OUT, pos=pos,
+                    prefix=prefix, mesh=mesh)
+        rest = fit(state=fit.load_state(prefix + "_chain.npz"),
+                   n_steps=M1_RESUME_EXTRA, prefix=None, mesh=mesh)
+        if not (np.array_equal(run.chain[:, :M1_N_OUT], first.chain) and np.array_equal(
+                run.chain[:, M1_N_OUT:M1_N_OUT + M1_RESUME_EXTRA], rest.chain)):
+            raise AssertionError("M1 (a): checkpoint resume not bitwise")
+        # the partial sums against one full-catalog kernel 1 call
+        final = run.final_state
+        err = compare("M1 (a) final lnP", final.log_prob,
+                      fit.batched_lnprob()(final.coords), **DIRECT_TOL)
+    np.save(out / f"m1{label}_{rank}.npy", run.chain)
+    return dict(backend=mesh.backend, mesh=mesh.shape, launches=launches,
+                ms_per_step=seconds / n_steps * 1e3, steps=n_steps,
+                acceptance=float(np.mean(run.acceptance_fraction)), lnp_err=err,
+                tier=fit.lnprob_tier(), wall_s=time.perf_counter() - t_start)
+
+
+def world_mesh4(device, rank, n_ranks, out):
+    """One rank of the world of four: paths M1 (a) and (b), M2 and M3 in
+    turn (one world, so one start-up of four processes)."""
+    return {"m1": {label: m1_run(label, shape, device, out, rank)
+                   for label, shape in (("a", (2, 2)), ("b", (4, 1)))},
+            "m2": world_m2(device, rank, n_ranks, out),
+            "m3": world_m3(device, rank, n_ranks, out)}
+
+
+def m2_fit(device, path):
+    """Path ``path``'s model and walkers, built as its phase builds them."""
+    from mcmc_dynamics_tpu_torch import models
+    from mcmc_dynamics_tpu_torch.background import SingleStars
+
+    if path == "A":
+        fit, _ = load_recipe(device)
+    elif path == "D":
+        fit, _ = freecenter_fit(device)
+    elif path == "E1":
+        columns, _, _ = contaminated_catalog()
+        fit = models.ConstantFitGB(port_reader(columns), parameters=contaminated_params(
+            models.ConstantFitGB.default_parameters(), gb=True), seed=22, device=device)
+    elif path in ("F1", "F2", "G2"):
+        columns, field, _ = contaminated_catalog(**F_CATALOG)
+        background = SingleStars(field, device=device) if path == "F2" else None
+        fit = radial_fit(models, port_reader, path, columns, background, device=device)
+    elif path == "G1":
+        cfg = json.loads(RECIPE.read_text())
+        fit = models.DoubleModelFit(read_catalog(cfg), seed=cfg["sampling"]["seed"],
+                                    device=device, parameters=double_recipe_params(
+                                        models.DoubleModelFit.default_parameters()))
+    else:
+        fit = k2_fit(device, k2_mock(device))
+        free = fit.fitted_parameters
+        truth = np.array([K2_TRUTH[name] for name in free])
+        scale = np.array([0.05 * K2_TRUTH["mbh"] if name == "mbh" else
+                          0.05 if name == "delta_v" else 0.01 for name in free])
+        rng = np.random.default_rng(36)
+        return fit, truth + scale * rng.normal(size=(K2_RUN["n_walkers"], len(free)))
+    walkers = dict((c[0], c[3]) for c in M2_CASES)[path]
+    return fit, fit.get_initials(walkers)
+
+
+class _plain:
+    """The plain version in place of a model module's kernel wrapper."""
+
+    def __init__(self, module, wrapper):
+        import importlib
+
+        from mcmc_dynamics_tpu_torch import ops
+
+        self.module = importlib.import_module(f"mcmc_dynamics_tpu_torch.models.{module}")
+        self.wrapper = wrapper
+        self.plain = getattr(ops, wrapper.replace("_batched", "_reference"))
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.wrapper)
+        setattr(self.module, self.wrapper, self.plain)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.wrapper, self.saved)
+
+
+def world_m2(device, rank, n_ranks, out):
+    """Path M2 in one rank of a dp 1 x sp 4 mesh: for every partial tier, the
+    path's model built and sampled M2_STEPS steps on the star-sharded mesh
+    (the launches counted), then this rank's slice: the kernel against its
+    float64 plain version, the slices' all-reduced sum (+ prior) against one
+    full-catalog call, at the path's gate; rank 0 times the partial."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh, run_ensemble_sharded
+    from mcmc_dynamics_tpu_torch.parallel import distributed
+    from mcmc_dynamics_tpu_torch.parallel.sharded import _star_slice
+    from mcmc_dynamics_tpu_torch.sampler import make_generator
+
+    mesh = make_mesh(("dp", "sp"), (1, M2_SP), device=device)
+    result = {"backend": mesh.backend}
+    for path, kernel, tier, walkers, rows_k, cols_k, wrapper in M2_CASES:
+        t_start = time.perf_counter()
+        _zero_counts()
+        fit, pos = m2_fit(device, path)
+        if fit.lnprob_tier() != tier:
+            raise AssertionError(f"M2 {path}: tier {fit.lnprob_tier()}, expected {tier}")
+        partial = fit._partial_tier_cached()
+        if partial is None:
+            raise AssertionError(f"M2 {path}: no partial tier")
+        steps = M2_K2_STEPS if path == "K2" else M2_STEPS
+        _sync(device)
+        t0 = time.perf_counter()
+        run = run_ensemble_sharded(fit, pos, make_generator(fit.seed, device), steps, mesh)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+        if not torch.isfinite(run.final_log_prob).any():
+            raise AssertionError(f"M2 {path}: no finite lnP after {steps} steps")
+        local = _star_slice(fit, mesh, "sp")
+        thetas = fit._to_device(pos[:walkers // 2])
+        got = partial(thetas, local)
+        entry = dict(launches=launches, ms_per_step=seconds / steps * 1e3, steps=steps,
+                     slice_stars=int(local["mask"].sum().item()),
+                     slice_rows=int(local["mask"].shape[0]), walkers=walkers // 2)
+        gate = JAM_GRID_TOL if kernel is None else DIRECT_TOL
+        if wrapper is not None:
+            with _plain(*wrapper):
+                ref = partial(thetas.double(), {k: v.double() for k, v in local.items()})
+            entry["slice_err"] = compare(f"M2 {path} slice {rank}", got, ref, **gate)
+        full = fit.batched_lnprob()(thetas)
+        summed = fit._with_prior(lambda t: mesh.all_reduce(got, "sp"))(thetas)
+        entry["sum_err"] = compare(f"M2 {path} sum of the slices", summed, full, **gate)
+        if rank == 0 and kernel is not None and torch.device(device).type == "cuda":
+            entry["ms"] = cuda_ms(lambda: partial(thetas, local))
+            with _plain(*wrapper):
+                entry["plain_ms"] = cuda_ms(lambda: partial(thetas, local), reps=10)
+            flops, sfu = PAIR_COST[kernel]
+            pairs = entry["walkers"] * entry["slice_stars"]
+            entry["bound_ms"], entry["bound_by"] = bound_ms(
+                4 * ((cols_k + 1) * entry["walkers"] + rows_k * entry["slice_rows"]),
+                flops * pairs, sfu * pairs)
+        distributed.barrier()
+        entry["wall_s"] = time.perf_counter() - t_start
+        result[path] = entry
+        del fit, run, local
+    return result
+
+
+def world_m3(device, rank, n_ranks, out):
+    """Path M3 in one rank: ``example/omega_cen_tempered.json`` through
+    ``cli.run.main`` with its ``parallel: {axes: {tp: 4}}`` block (only its
+    data file made absolute and its prefix moved under the world's
+    directory), then ``sample_tempered`` on the same mesh in M3_RESUME steps
+    through ``state=`` against one run."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh
+    from mcmc_dynamics_tpu_torch.parallel.tempered import swap_attempts
+
+    t_start = time.perf_counter()
+    cfg = json.loads(TEMPERED_RECIPE.read_text())
+    cfg["data"]["file"] = str(REPO / cfg["data"]["file"])
+    cfg["prefix"] = str(out / cfg["prefix"])
+    path = out / f"omega_cen_tempered_{rank}.json"
+    path.write_text(json.dumps(cfg))
+    _zero_counts()
+    records, cli_s = run_cli_here([str(path), "--device", str(device), "--skip-binned"])
+    launches = _counts()
+    messages = {r.msg: r.args for r in records}
+    log_z = messages.get("thermodynamic-integration log-evidence: %.4f")
+    s = cfg["sampling"]
+    fit, _ = load_recipe(device, TEMPERED_RECIPE)
+    mesh = make_mesh(("tp",), (cfg["parallel"]["axes"]["tp"],), device=device)
+    kw = dict(beta_min=s["beta_min"], swap_every=s["swap_every"],
+              move=[tuple(m) for m in s["move"]])
+    pos = fit.get_initials(s["n_walkers"])
+    _zero_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    whole, _ = fit.sample_tempered(n_steps=sum(M3_RESUME), pos=pos, mesh=mesh, **kw)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    first, _ = fit.sample_tempered(n_steps=M3_RESUME[0], pos=pos, mesh=mesh, **kw)
+    second, _ = fit.sample_tempered(n_steps=M3_RESUME[1], state=first.final_state,
+                                    mesh=mesh, **kw)
+    if not (np.array_equal(whole.chain, np.concatenate([first.chain, second.chain], 1))
+            and torch.equal(whole.final_state.coords, second.final_state.coords)):
+        raise AssertionError(f"M3: {M3_RESUME[0]} + {M3_RESUME[1]} ladder steps "
+                             f"through state= differ from {sum(M3_RESUME)}")
+    return dict(backend=mesh.backend, cli_s=cli_s, cli_launches=launches,
+                log_z=None if log_z is None else float(log_z[0]),
+                swap_acceptance=(whole.final_state.swaps_accepted.cpu().numpy()
+                                 / swap_attempts(mesh.shape["tp"], s["n_walkers"],
+                                                 s["swap_every"], 0, sum(M3_RESUME))
+                                 ).tolist(),
+                resume_launches=_counts(), ms_per_step=seconds / sum(M3_RESUME) * 1e3,
+                levels=int(mesh.shape["tp"]), walkers=s["n_walkers"], steps=s["n_steps"],
+                wall_s=time.perf_counter() - t_start)
+
+
+def world_m4(device, rank, n_ranks, out):
+    """Path M4 in one rank: path I1 (fit_radial_bins on the omega Cen
+    catalog) with its bins over dp 2; the chains saved for the parent."""
+    from mcmc_dynamics_tpu_torch import pipelines
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(("dp",), (n_ranks,), device=device)
+    columns, (ra_c, dec_c) = binned_catalog("I1")
+    _zero_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    res = pipelines.fit_radial_bins(port_reader(columns), ra_c, dec_c, device=device,
+                                    mesh=mesh, **BINNED_RUN)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    np.save(out / f"m4_{rank}.npy", res.chains)
+    return dict(backend=mesh.backend, launches=_counts(), wall_s=seconds,
+                bins=res.n_bins, ms_per_step=seconds / BINNED_RUN["n_steps"] * 1e3)
+
+
+WORLDS = {"mesh4": world_mesh4, "m4": world_m4}
+
+
+def _world_launches(label, counts, expect):
+    """The launches of a world's main path (``counts``: each rank's), summed
+    over its ranks; the kernels in ``expect`` must launch, every other kernel
+    must not."""
+    total = {}
+    for rank_counts in counts:
+        for name, count in rank_counts.items():
+            total[name] = total.get(name, 0) + count
+    for name, count in total.items():
+        if (count > 0) != (name in expect):
+            raise AssertionError(f"path {label} launches: {total}")
+    return {name: total[name] for name in expect}
+
+
+def phase_mesh_one_rank(device, path_a_chain, tmp, profiling=False):
+    """Phase 38, path M1 (c): A's recipe on a mesh of one rank (this
+    script: a one-rank world, NCCL on the card), path A's chain bit for
+    bit."""
+    from mcmc_dynamics_tpu_torch.parallel import distributed
+
+    try:
+        run = m1_run("c", (1, 1), device, tmp, 0)
+        run["profile"] = profile_m1(device, 0, ((1, 1),)) if profiling else []
+    finally:
+        distributed.shutdown()
+    if not np.array_equal(np.load(tmp / "m1c_0.npy"), path_a_chain):
+        raise AssertionError("M1 (c): not path A's chain bit for bit")
+    run["ranks"] = 1
+    run["launches"] = _world_launches("M1 (c)", [run["launches"]], {"model_lnlike"})
+    return run
+
+
+def phase_mesh_four(device, path_a_chain, tmp, profiling=False):
+    """Phases 38-40 in one world of four ranks sharing the card
+    (world_mesh4): M1 (a) and (b), M2, M3.  Returns each path's numbers,
+    checked: the ranks' chains identical, (a)'s medians in A's goldens, (b)
+    path A's chain bit for bit; M2's launches; M3's (mesh_tempered)."""
+    out = tmp / "mesh4"
+    ranks = spawn_world("mesh4", 4, device, out, profiling)
+    golden = json.loads(GOLDENS.read_text())["omega_cen_fixed"]
+    n_burn = json.loads(RECIPE.read_text())["sampling"]["n_burn"]
+    m1 = {}
+    for label in ("a", "b"):
+        chains = [np.load(out / f"m1{label}_{r}.npy") for r in range(len(ranks))]
+        if not all(np.array_equal(c, chains[0]) for c in chains[1:]):
+            raise AssertionError(f"M1 ({label}): the ranks' chains differ")
+        entry = dict(ranks[0]["m1"][label], ranks=len(ranks))
+        entry["launches"] = _world_launches(
+            f"M1 ({label})", [r["m1"][label]["launches"] for r in ranks], {"model_lnlike"})
+        if label == "a":
+            entry["medians"] = check_goldens(chains[0], n_burn, golden)
+            entry["world_s"] = ranks[0]["world_s"]
+        elif not np.array_equal(chains[0], path_a_chain):
+            raise AssertionError(f"M1 ({label}): not path A's chain bit for bit")
+        m1[label] = entry
+    m2 = {"backend": ranks[0]["m2"]["backend"]}
+    for path, kernel, *_ in M2_CASES:
+        expect = set() if kernel is None else {kernel.replace("_lnb", "")}
+        if path == "F2":
+            expect.add("background_lse")         # SingleStars at construction
+        entry = dict(ranks[0]["m2"][path])
+        entry["launches"] = _world_launches(
+            f"M2 {path}", [r["m2"][path]["launches"] for r in ranks], expect)
+        for key in ("slice_err", "sum_err"):
+            if key in entry:
+                entry[key] = max(r["m2"][path][key] for r in ranks)
+        m2[path] = entry
+    return m1, m2, mesh_tempered([r["m3"] for r in ranks], out), \
+        ranks[0].get("profile") or []
+
+
+def mesh_tempered(ranks, out):
+    """Path M3's checks on its ranks' results (world_m3): kernel 1 1 + 2 x
+    n_steps times a rank in cli.run, the cold chain in the goldens, a finite
+    log-evidence, every pair swapping."""
+    r0 = ranks[0]
+    n_steps = r0["steps"]
+    for r in ranks:
+        if r["cli_launches"]["model_lnlike"] != 1 + 2 * n_steps:
+            raise AssertionError(f"M3: a rank launched kernel 1 "
+                                 f"{r['cli_launches']['model_lnlike']} times in cli.run, "
+                                 f"expected 1 + 2 x {n_steps}")
+    if r0["log_z"] is None or not math.isfinite(r0["log_z"]):
+        raise AssertionError(f"M3: cli.run logged log-evidence {r0['log_z']}")
+    swaps = np.asarray(r0["swap_acceptance"])
+    if not (np.isfinite(swaps).all() and (swaps > 0).all()):
+        raise AssertionError(f"M3: swap acceptance per pair {swaps}")
+    cfg = json.loads(TEMPERED_RECIPE.read_text())
+    with np.load(out / f"{cfg['prefix']}_chain.npz") as f:
+        chain, coords = f["chain"], f["coords"]
+    if chain.shape != (r0["walkers"], n_steps, 6) or coords.shape[0] != r0["levels"]:
+        raise AssertionError(f"M3: cold chain {chain.shape}, ladder {coords.shape}")
+    golden = json.loads(GOLDENS.read_text())["omega_cen_tempered"]
+    medians = check_goldens(chain, cfg["sampling"]["n_burn"], golden)
+    launches = _world_launches("M3", [dict(r["cli_launches"]) for r in ranks]
+                               + [r["resume_launches"] for r in ranks], {"model_lnlike"})
+    return dict(r0, medians=medians, launches=launches)
+
+
+def phase_mesh_binned(device, path_i1_chains, tmp, profiling=False):
+    """Phase 41, path M4: path I1 with its bins over a world of two ranks
+    (world_m4), bit for bit path I1's chains on both."""
+    out = tmp / "m4"
+    ranks = spawn_world("m4", 2, device, out, profiling)
+    for r in range(len(ranks)):
+        if not np.array_equal(np.load(out / f"m4_{r}.npy"), path_i1_chains):
+            raise AssertionError(f"M4: rank {r}'s chains are not path I1's bit for bit")
+    return dict(ranks[0], launches=_world_launches("M4", [r["launches"] for r in ranks],
+                                                   set()))
+
+
+
+def _traced(label, rank, fn, n_steps, kernel_names):
+    """``fn`` run by every rank; rank 0 traces it (profile_path) and returns
+    its printed line."""
+    import contextlib
+    import io
+
+    if rank != 0:
+        fn()
+        return None
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        profile_path(label, fn, n_steps, kernel_names)
+    return text.getvalue().strip()
+
+
+def profile_mesh4(device, rank, n_ranks):
+    """--profile: PROFILE_STEPS steps of A's recipe on dp 2 x sp 2 and dp 4 x
+    sp 1 and of the tempered recipe on tp 4, traced on rank 0."""
+    return profile_m1(device, rank, ((2, 2), (4, 1))) + profile_m3(device, rank, n_ranks)
+
+
+def profile_m1(device, rank, shapes):
+    """--profile: PROFILE_STEPS steps of A's recipe on each mesh of
+    ``shapes``, traced on rank 0 (of the world, or the script itself)."""
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh
+
+    lines = []
+    for shape in shapes:
+        mesh = make_mesh(("dp", "sp"), shape, device=device)
+        fit, sampling = load_recipe(device)
+        pos = fit.get_initials(sampling["n_walkers"])
+        kw = dict(n_walkers=sampling["n_walkers"], pos=pos, prefix=None, mesh=mesh)
+        fit(n_steps=20, **kw)                                   # warm-up
+        lines.append(_traced(f"M1 dp {shape[0]} x sp {shape[1]} ({mesh.backend})", rank,
+                             lambda: fit(n_steps=PROFILE_STEPS, **kw), PROFILE_STEPS,
+                             ["model_lnlike_kernel", "sum_chunks_kernel<1>"]))
+    return lines
+
+
+def profile_m3(device, rank, n_ranks):
+    """--profile: PROFILE_STEPS ladder steps of the tempered recipe on tp 4,
+    traced on rank 0."""
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh
+
+    cfg = json.loads(TEMPERED_RECIPE.read_text())
+    s = cfg["sampling"]
+    fit, _ = load_recipe(device, TEMPERED_RECIPE)
+    mesh = make_mesh(("tp",), (n_ranks,), device=device)
+    kw = dict(n_walkers=s["n_walkers"], pos=fit.get_initials(s["n_walkers"]),
+              beta_min=s["beta_min"], swap_every=s["swap_every"],
+              move=[tuple(m) for m in s["move"]], mesh=mesh)
+    fit.sample_tempered(n_steps=20, **kw)
+    return [_traced(f"M3 tp {n_ranks} ({mesh.backend})", rank,
+                    lambda: fit.sample_tempered(n_steps=PROFILE_STEPS, **kw),
+                    PROFILE_STEPS, ["model_lnlike_kernel", "sum_chunks_kernel<1>"])]
+
+
+def profile_m4(device, rank, n_ranks):
+    """--profile: path I1's pipeline with its bins over dp 2 (set-up
+    included), traced on rank 0."""
+    from mcmc_dynamics_tpu_torch import pipelines
+    from mcmc_dynamics_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(("dp",), (n_ranks,), device=device)
+    columns, (ra_c, dec_c) = binned_catalog("I1")
+    return [_traced(f"M4 dp {n_ranks} ({mesh.backend}, set-up included)", rank,
+                    lambda: pipelines.fit_radial_bins(port_reader(columns), ra_c, dec_c,
+                                                      device=device, mesh=mesh,
+                                                      **BINNED_RUN),
+                    BINNED_RUN["n_steps"], [])]
+
+
+PROFILES = {"mesh4": profile_mesh4, "m4": profile_m4}
+
 def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
+    if args[:1] == ["--world"]:                 # one rank of phases 38-41
+        return world_main(args[1:])
     profiling = "--profile" in args
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2974,6 +3569,60 @@ def main(argv=None) -> int:
               f"|mean|, std, cov errors {[round(e, 4) for e in l3['gauss_errs']]} "
               f"(bounds {L3_TOL}) | scipy log-prob -> numpy path")
 
+    with tempfile.TemporaryDirectory() as mesh_tmp:
+        tmp = pathlib.Path(mesh_tmp)
+        m1c = phase_mesh_one_rank(device, recipe["chain"], tmp, profiling)
+        m1, m2, m3, profiles = phase_mesh_four(device, recipe["chain"], tmp, profiling)
+        m1["c"] = m1c
+        m4 = phase_mesh_binned(device, binned["I1"]["result"].chains, tmp, profiling)
+    for label, run in (("a", m1["a"]), ("b", m1["b"]), ("c", m1["c"])):
+        launches["model_lnlike"] += run["launches"]["model_lnlike"]
+        if label == "a":
+            what = (f"kernel 1 on 1571-star slices, medians in A's goldens, the "
+                    f"checkpoint at {M1_N_OUT} steps resumed {M1_RESUME_EXTRA} steps "
+                    f"bitwise, final lnP vs the full catalog's kernel 1 max |d| "
+                    f"{run['lnp_err']:.4g} | the world of four (M1 a, b, M2, M3) "
+                    f"{run['world_s']:.1f} s from spawn to exit")
+        else:
+            what = "bitwise equal to path A's chain"
+        what += f" | {run['wall_s']:.1f} s"
+        print(f"phase 38 main path M1 ({label}) (A's recipe on a mesh of {run['ranks']} "
+              f"rank(s), {run['mesh']}, {run['backend']}): {run['ms_per_step']:.4f} "
+              f"ms/step over {run['steps']} steps | acceptance {run['acceptance']:.3f} | "
+              f"every rank's chain identical | {what} | launches {run['launches']}")
+    for path, kernel, *_ in M2_CASES:
+        run = m2[path]
+        for name, count in run["launches"].items():
+            launches[name] += count
+        timing = (f" | rank 0's slice: kernel {run['ms']:.4f} ms, plain f32 "
+                  f"{run['plain_ms']:.4f} ms, bound {run['bound_ms']:.4f} ms "
+                  f"({run['bound_by']})" if "ms" in run else "")
+        slice_err = (f"slice vs float64 plain max |d| {run['slice_err']:.4g}, "
+                     if "slice_err" in run else "")
+        print(f"phase 39 main path M2 {path} ({kernel or 'JAM grid, plain torch'}, "
+              f"sp {M2_SP}, {m2['backend']}): {run['walkers']} walkers x "
+              f"{run['slice_rows']}-row slices | {slice_err}sum of the slices vs the "
+              f"full call max |d| {run['sum_err']:.4g} | {run['steps']} sharded steps "
+              f"{run['ms_per_step']:.4f} ms/step{timing} | {run['wall_s']:.1f} s with "
+              f"its build | launches {run['launches']}")
+    launches["model_lnlike"] += m3["launches"]["model_lnlike"]
+    print(f"phase 40 main path M3 (omega_cen_tempered.json as written, tp "
+          f"{m3['levels']}, cli.run in {m3['levels']} ranks, {m3['backend']}): "
+          f"cli.run {m3['cli_s']:.2f} s, kernel 1 1 + 2 x {m3['steps']} launches a rank "
+          f"| goldens ok {json.dumps({k: round(float(v), 4) for k, v in m3['medians'].items()})}"
+          f" | log-evidence {m3['log_z']:.4f} | swap acceptance per pair over "
+          f"{sum(M3_RESUME)} steps {[round(x, 4) for x in m3['swap_acceptance']]}"
+          f" | {M3_RESUME[0]} + {M3_RESUME[1]} steps through state= bitwise equal "
+          f"{sum(M3_RESUME)} | {m3['ms_per_step']:.4f} ms/step | {m3['wall_s']:.1f} s | "
+          f"launches {m3['launches']}")
+    print(f"phase 41 main path M4 (path I1 with its {m4['bins']} bins over dp 2, "
+          f"{m4['backend']}): {m4['wall_s']:.4f} s set-up included, "
+          f"{m4['ms_per_step']:.4f} ms/step | both ranks' chains bitwise equal path I1's "
+          f"| the world of two {m4['world_s']:.1f} s from spawn to exit | launches "
+          f"{m4['launches']}")
+    for line in m1c["profile"] + profiles + (m4.get("profile") or []):
+        print(line)
+
     if profiling:
         fit_a, _ = load_recipe(device)
         fit_c, _ = load_recipe(device, CENTER_RECIPE, "ConstantFit")
@@ -3042,14 +3691,23 @@ def main(argv=None) -> int:
     # (name, source, TPU kernel, row at the large shape (16384 walkers; the
     # KDE 20480 targets), rows at the main paths' shapes: (path, row), path
     # None for a kernel no model dispatches)
-    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0], [("A", direct[1]), ("L1", direct[2]), ("L3", direct[1])]),
+    def m2_row(path):
+        """Rank 0's star slice of path M2 ``path`` as a kernel row."""
+        run = m2[path]
+        return dict(W=run["walkers"], N=run["slice_rows"], ms=run["ms"],
+                    bound_ms=run["bound_ms"], bound_by=run["bound_by"])
+
+    def m2_path(path):
+        return (f"M2 {path} (1 of {M2_SP} star slices)", m2_row(path))
+
+    rows = [("model_lnlike", "model_lnlike.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:248", direct[0], [("A", direct[1]), ("L1", direct[2]), ("L3", direct[1]), m2_path("A")]),
             ("model_tensor", "model_tensor.cu", "mcmc_dynamics_tpu/ops/model_tensor.py:487", tensor[0], [("B", tensor[1])]),
-            ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0], [("D", freecenter[1])]),
+            ("model_freecenter", "model_freecenter.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:378", freecenter[0], [("D", freecenter[1]), m2_path("D")]),
             ("constant_mixture", "constant_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:148", mixture[0], [("E2", mixture[1])]),
-            ("constant_gb", "constant_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:699", gb[0], [("E1", gb[1])]),
-            ("model_mixture", "model_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:500", model_mixture[0], [("F1", model_mixture[1]), ("F2", mixture_lnb[1])]),
-            ("double_model", "double_model.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:605", double[0], [("G1", double[1])]),
-            ("double_model_gb", "double_model_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:807", double_gb[0], [("G2", double_gb[1])]),
+            ("constant_gb", "constant_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:699", gb[0], [("E1", gb[1]), m2_path("E1")]),
+            ("model_mixture", "model_mixture.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:500", model_mixture[0], [("F1", model_mixture[1]), ("F2", mixture_lnb[1]), m2_path("F1"), m2_path("F2")]),
+            ("double_model", "double_model.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:605", double[0], [("G1", double[1]), m2_path("G1")]),
+            ("double_model_gb", "double_model_gb.cu", "mcmc_dynamics_tpu/ops/lnlike_kernels.py:807", double_gb[0], [("G2", double_gb[1]), m2_path("G2")]),
             ("model_sufficient", "model_sufficient.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:422", sufficient[0], [("H", sufficient[1])]),
             ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0], [("E2", lse[0]), ("F2", lse[0])]),
             ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0], [(None, sufficient_mma[1])]),

@@ -34,7 +34,11 @@ ladder with its evidence (``Runner.sample_tempered``) or by HMC
 * the binned production pipeline :func:`~.pipelines.fit_radial_bins` (every
   radial bin's ensemble in one loop on the sampler's batch axis), with the
   native radial binning and catalog cache (:mod:`.native`) and the mock-data
-  harness ``python -m mcmc_dynamics_tpu_torch.cli.run_tests``.
+  harness ``python -m mcmc_dynamics_tpu_torch.cli.run_tests``;
+* several GPUs (:mod:`.parallel`, one process a device under
+  ``torch.distributed``): ``mesh=`` spreads the walkers, the catalog (each
+  model's partial-likelihood kernel on its star slice), the tempered ladder's
+  levels or the radial bins over the ranks of a device mesh.
 
 The port imports nothing of the JAX package, not even its modules that do not
 load JAX: units, ``Parameter``/``Parameters``, the expression validator,

@@ -16,8 +16,13 @@ it:
   as CSV, the binned profile written as ``{prefix}_binned.csv``), not pandas;
 * the figures are drawn only where matplotlib imports, and are logged as skipped
   otherwise;
-* a ``parallel`` block raises :class:`NotImplementedError` (ROADMAP.md, queue 1,
-  item 9): run the tempered ladder on one device with ``sampling.n_temps``.
+* the ``parallel`` block runs one process (rank) a device: every rank runs
+  this command, started by ``torchrun --nproc-per-node N`` or wired by the
+  block's ``distributed`` sub-block (``coordinator`` as ``host:port`` or an
+  ``init_method`` URL, ``num_processes``, ``process_id``, ``auto``), and
+  ``axes`` must cover the world.  The ranks sample together; the primary
+  (rank 0) alone writes the files and logs the tables and the post-processing
+  (profiles, mass posterior, the binned section).
 """
 
 from __future__ import annotations
@@ -100,6 +105,47 @@ def build_background(cfg, v_sys: float = 0.0, device="cuda"):
         v = table.value(cfg.get("column", "v")) - v_sys
         return SingleStars(u.Quantity(v, "km/s"), device=device)
     raise ValueError(f"Unknown background type '{cfg['type']}'.")
+
+
+def build_mesh(cfg, device="cuda"):
+    """The device mesh of the ``parallel`` block, or None.
+
+    The ``distributed`` sub-block (or, without it, the ``torchrun``
+    environment) joins this process to the world first.  ``axes`` maps the
+    mesh axes to their extents: ``dp`` (walkers), ``sp`` (stars) and ``tp``
+    (the tempered ladder); their product is the number of ranks, one a
+    device (``parallel/mesh.py``)."""
+    if not cfg:
+        return None
+    import torch.distributed as torch_dist
+
+    from ..parallel import distributed as dist
+    from ..parallel import make_mesh
+
+    dcfg = cfg.get("distributed")
+    if dcfg is not None:
+        dist.initialize(coordinator_address=dcfg.get("coordinator"),
+                        num_processes=dcfg.get("num_processes"),
+                        process_id=dcfg.get("process_id"),
+                        auto=bool(dcfg.get("auto", False)))
+    else:
+        dist.initialize()
+    axes = cfg.get("axes")
+    if not axes:
+        return None
+    names = tuple(axes.keys())
+    shape = tuple(int(v) for v in axes.values())
+    n = int(np.prod(shape))
+    world = torch_dist.get_world_size() if torch_dist.is_initialized() else 1
+    if n > world:
+        raise ValueError(
+            f"parallel.axes {dict(axes)} needs {n} ranks (one a device); the "
+            f"world has {world}: start this command with torchrun "
+            f"--nproc-per-node {n}, or give the block a 'distributed' sub-block.")
+    if n < world:
+        raise ValueError(f"parallel.axes {dict(axes)} covers {n} ranks of a "
+                         f"world of {world}: the mesh must cover the world.")
+    return make_mesh(names, shape, device=device)
 
 
 def _normalize_move(move_cfg):
@@ -187,15 +233,18 @@ def main(argv=None):
 
     cfg = json.loads(pathlib.Path(args.config).read_text())
     prefix = cfg.get("prefix", "run")
-    logging.basicConfig(level=logging.INFO,
-                        handlers=[logging.StreamHandler(),
-                                  logging.FileHandler(f"{prefix}.log")])
+    # the mesh (and the world of ranks) first: only the primary writes the log
+    from ..parallel.distributed import is_primary
+    mesh = build_mesh(cfg.get("parallel"), device=args.device)
+    primary = is_primary()
+    logging.basicConfig(level=logging.INFO if primary else logging.WARNING,
+                        handlers=[logging.StreamHandler()]
+                        + ([logging.FileHandler(f"{prefix}.log")] if primary else []))
     logger.info("run configuration: %s", json.dumps(cfg, indent=1))
+    if mesh is not None:
+        logger.info("device mesh: %s, %s transport, this rank on %s",
+                    mesh.shape, mesh.backend, mesh.device)
 
-    if cfg.get("parallel"):
-        raise NotImplementedError(
-            "the 'parallel' block (a device mesh over several GPUs) is not "
-            "ported to torch yet (ROADMAP.md, queue 1, item 9).")
     sampling = cfg.get("sampling", {})
     sampler_kind = sampling.get("sampler", "ensemble")
     if sampler_kind not in ("ensemble", "tempered", "hmc"):
@@ -252,6 +301,16 @@ def main(argv=None):
         pos = fit.read_final_chain(args.chain)
         logger.info("restarting from %s (%d walkers)", args.chain, pos.shape[0])
 
+    if mesh is not None:
+        if sampler_kind == "hmc":
+            raise ValueError("sampling.sampler = 'hmc' does not take a device "
+                             "mesh; drop the parallel.axes block.")
+        want = "tp" if sampler_kind == "tempered" else "dp"
+        if want not in mesh.shape:
+            raise ValueError(
+                f"sampling.sampler = '{sampler_kind}' needs a '{want}' axis in "
+                f"parallel.axes (got {mesh.shape}).")
+    mesh_kw = {"mesh": mesh} if mesh is not None else {}
     move = _normalize_move(sampling.get("move"))
     n_burn = sampling.get("n_burn", 100)
     if sampler_kind == "tempered":
@@ -259,7 +318,8 @@ def main(argv=None):
             n_walkers=sampling.get("n_walkers", 100), n_steps=n_steps,
             n_temps=int(sampling.get("n_temps", 8)),
             beta_min=float(sampling.get("beta_min", 1e-3)),
-            swap_every=int(sampling.get("swap_every", 5)), pos=pos, move=move)
+            swap_every=int(sampling.get("swap_every", 5)), pos=pos, move=move,
+            **mesh_kw)
         logger.info("thermodynamic-integration log-evidence: %.4f", log_z)
         fit.save_current_status(sampler, prefix=prefix)
     elif sampler_kind == "hmc":
@@ -277,7 +337,7 @@ def main(argv=None):
             max_steps=int(sampling.get("max_steps", 50_000)),
             check_every=int(sampling.get("n_out", 500)),
             tau_factor=float(sampling.get("tau_factor", 50.0)),
-            pos=pos, prefix=prefix, move=move)
+            pos=pos, prefix=prefix, move=move, **mesh_kw)
         logger.info("auto-stop: %d steps, converged=%s, tau=%s",
                     sampler.iteration, sampler.converged,
                     np.array2string(sampler.tau, precision=1))
@@ -290,7 +350,10 @@ def main(argv=None):
     else:
         sampler = fit(n_walkers=sampling.get("n_walkers", 100), n_steps=n_steps,
                       n_out=sampling.get("n_out", 100), pos=pos, prefix=prefix,
-                      move=move)
+                      move=move, **mesh_kw)
+    if not primary:
+        # the chain is whole on every rank; the primary post-processes it
+        return 0
 
     best = fit.compute_bestfit_values(sampler.chain, n_burn=n_burn)
     best.write(sys.stdout, fmt="csv")

@@ -1,7 +1,7 @@
 """Model base class: host shell compiling data + parameters into a batched lnprob.
 
-Counterpart of ``mcmc_dynamics_tpu/models/base.py`` (without the multi-device
-paths, listed in ROADMAP.md).  Observables
+Counterpart of ``mcmc_dynamics_tpu/models/base.py``; ``mesh=`` runs the
+multi-device samplers of ``parallel/`` (one rank a device).  Observables
 are converted to internal units on the host in float64 and then placed on the
 model's device in its working dtype.  A batched lnprob maps a (W, K) walker
 block to (W,); the sampler runs it on half-ensembles.  Checkpoints are
@@ -130,6 +130,7 @@ class Runner:
         self._compiled: Optional[CompiledParameters] = None
         self._compiled_fp = None
         self._lnprob_batched_cache = None
+        self._partial_tier_cache = None
 
     def _to_device(self, values) -> torch.Tensor:
         return torch.as_tensor(np.asarray(values, np.float64), dtype=self.dtype,
@@ -287,6 +288,35 @@ class Runner:
             self._lnprob_batched_cache = cached
         return cached[1]
 
+    def build_lnlike_partial_batched(self) -> Optional[Callable]:
+        """Hook: the model's fused partial log-likelihood, or None.
+
+        A model whose kernel reduces the stars by a plain sum returns
+        ``fn(thetas, local) -> (W,)``: the partial sum over the per-star slice
+        ``local`` (:meth:`sharded_star_data`'s columns, padded, with ``mask``).
+        The star-sharded sampler (``parallel/sharded.py``) all-reduces the
+        partials over the star axis and adds the prior once.  None: the
+        sampler reduces the model's ``lnlike_terms`` instead."""
+        return None
+
+    def sharded_star_data(self) -> Dict[str, torch.Tensor]:
+        """The per-star columns the star-sharded tiers read, whole (the
+        sampler pads them and keeps this rank's slice): :meth:`prepare_data`'s
+        columns."""
+        return self.prepare_data(dict(self._data_arrays))
+
+    def _partial_tier_cached(self) -> Optional[Callable]:
+        """:meth:`build_lnlike_partial_batched`, rebuilt only when
+        :meth:`batched_lnprob` would be."""
+        _ = self.compiled  # refresh fingerprint
+        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"),
+               self.lnprob_cache_salt())
+        cached = self._partial_tier_cache
+        if cached is None or cached[0] != key:
+            cached = (key, self.build_lnlike_partial_batched())
+            self._partial_tier_cache = cached
+        return cached[1]
+
     def build_lnprob_differentiable(self) -> Callable:
         """The batched lnprob (W, K) -> (W,) that HMC differentiates: the
         generic tier, plain torch (the counterpart of the JAX package's
@@ -423,15 +453,30 @@ class Runner:
         :class:`~..profiling.SamplerTelemetry`) records each chunk's wall
         time; ``plot=True`` draws ``{prefix}_chains.png`` (a failed plot is
         logged, never raised).
+
+        ``mesh=`` (a :class:`~..parallel.Mesh`, with ``dp_axis=`` and
+        ``sp_axis=``, default ``"dp"`` and ``"sp"``) runs the same analysis
+        on every rank of the mesh: walkers over ``dp_axis``, the catalog over
+        ``sp_axis`` where the mesh has it (:meth:`_call_sharded`).
         """
         del n_burn, n_threads
         mesh = kwargs.pop("mesh", None)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-device samplers are not ported to torch yet "
-                "(ROADMAP.md, queue 1, item 9).")
+        dp_axis = kwargs.pop("dp_axis", "dp")
+        sp_axis = kwargs.pop("sp_axis", "sp")
         if kwargs:
             logger.warning("Ignoring unsupported keyword arguments: %s", list(kwargs))
+        if mesh is not None:
+            if thin != 1:
+                raise NotImplementedError(
+                    "thin= is not supported with mesh= (the sharded sampler "
+                    "records every step).")
+            sampler = self._call_sharded(mesh, dp_axis, sp_axis, n_walkers=n_walkers,
+                                         n_steps=n_steps, n_out=n_out, pos=pos, a=a,
+                                         move=move, seed=seed, prefix=prefix,
+                                         telemetry=telemetry, state=state)
+            if plot:
+                self._plot_run(sampler, prefix, true_values)
+            return sampler
         if n_steps <= 0:
             raise ValueError("n_steps must be positive.")
         lnprob = self.batched_lnprob()
@@ -478,12 +523,117 @@ class Runner:
         if prefix is not None and n_out:
             self.save_current_status(sampler, prefix=prefix)
         if plot:
-            try:
-                from ..utils.plots import plot_chain
-                plot_chain(sampler.chain, labels=self.labels, true_values=true_values,
-                           filename=f"{prefix}_chains.png" if prefix else None)
-            except Exception as err:  # plotting must never kill a fit
-                logger.warning("Chain plotting failed: %s", err)
+            self._plot_run(sampler, prefix, true_values)
+        return sampler
+
+    def _plot_run(self, sampler, prefix, true_values):
+        """``{prefix}_chains.png`` of a run; a failed plot is logged."""
+        try:
+            from ..utils.plots import plot_chain
+            plot_chain(sampler.chain, labels=self.labels, true_values=true_values,
+                       filename=f"{prefix}_chains.png" if prefix else None)
+        except Exception as err:  # plotting must never kill a fit
+            logger.warning("Chain plotting failed: %s", err)
+
+    def _call_sharded(self, mesh, dp_axis, sp_axis, n_walkers, n_steps, n_out,
+                      pos, a, seed, prefix, telemetry, state=None,
+                      move="stretch") -> "SamplerResult":
+        """The chunked, checkpointed analysis of :meth:`__call__` on a mesh
+        (``parallel.run_ensemble_sharded``), run by every rank.
+
+        Draws come from one generator seeded as the single-device run's and
+        replicated on every rank, so a mesh without a star axis of extent > 1
+        gives the single-device chain bit for bit, and ``state=`` (a
+        checkpoint of either, at any ``dp`` extent) continues it bit for bit.
+        Checkpoints: with shared storage each rank writes its own walker
+        blocks and the primary assembles ``{prefix}_chain.npz``
+        (:meth:`save_current_status_shards`); otherwise the chain is gathered
+        and the primary writes it."""
+        from ..parallel.distributed import (checkpoint_dir_is_shared,
+                                            mesh_spans_processes)
+        from ..parallel.sharded import run_ensemble_sharded
+
+        if n_steps <= 0:
+            raise ValueError("n_steps must be positive.")
+        if state is None:
+            coords = self._to_device(self._validated_initials(pos, n_walkers))
+            gen = make_generator(self.seed if seed is None else seed, self.device)
+            lnp = None
+            accepted0 = np.zeros(n_walkers, np.int64)
+            step0 = 0
+        else:
+            coords, gen, lnp = state.coords, state.generator, state.log_prob
+            n_walkers = coords.shape[0]
+            accepted0 = state.accepted.cpu().numpy().astype(np.int64)
+            step0 = int(state.step)
+        if telemetry is not None:
+            telemetry.n_walkers = n_walkers
+        ndim = int(coords.shape[1])
+        shard_ckpt = (prefix is not None and mesh_spans_processes(mesh)
+                      and checkpoint_dir_is_shared(prefix))
+        chain_parts, lnp_parts = [], []
+        blocks: Dict[tuple, tuple] = {}    # walker ids -> ([chain], [lnp])
+        assembled = (None, None)
+        chunk = n_out if n_out else n_steps
+        done = 0
+        accepted_run = np.zeros(n_walkers, np.int64)
+
+        def snapshot():
+            return EnsembleState(
+                coords=coords, log_prob=lnp, generator=gen,
+                accepted=torch.as_tensor(accepted0 + accepted_run, dtype=torch.int32,
+                                         device=self.device),
+                step=step0 + done)
+
+        while done < n_steps:
+            steps = min(chunk, n_steps - done)
+            with (telemetry.chunk(steps) if telemetry is not None
+                  else contextlib.nullcontext()):
+                result = run_ensemble_sharded(self, coords, gen, n_steps=steps,
+                                              mesh=mesh, dp_axis=dp_axis,
+                                              sp_axis=sp_axis, a=a, move=move,
+                                              log_prob0=lnp)
+                if telemetry is not None:
+                    result.final_log_prob.cpu()    # waits for the device
+            if shard_ckpt:
+                for wids, cb, lb in result.local_blocks():
+                    ent = blocks.setdefault(tuple(int(w) for w in wids), ([], []))
+                    ent[0].append(cb)
+                    ent[1].append(lb)
+            else:
+                chain_parts.append(result.chain.cpu().numpy())
+                lnp_parts.append(result.log_prob.cpu().numpy())
+            accepted_run += result.accepted.cpu().numpy().astype(np.int64)
+            coords, lnp = result.final_coords, result.final_log_prob
+            done += steps
+            if n_out:
+                logger.info("step %5d  <lnP> = %12.5e", done,
+                            float(lnp.mean()))
+                if shard_ckpt:
+                    assembled = self.save_current_status_shards(
+                        blocks, snapshot(), prefix, (n_walkers, done, ndim))
+                elif prefix is not None:
+                    self.save_current_status_arrays(
+                        np.concatenate(chain_parts, axis=1),
+                        np.concatenate(lnp_parts, axis=1), snapshot(), prefix=prefix)
+
+        if shard_ckpt:
+            if not n_out:
+                assembled = self.save_current_status_shards(
+                    blocks, snapshot(), prefix, (n_walkers, done, ndim))
+            if assembled[0] is not None:
+                chain, lnprobability = assembled
+            else:       # the other ranks read the primary's canonical file
+                with np.load(f"{prefix}_chain.npz") as f:
+                    chain, lnprobability = np.asarray(f["chain"]), np.asarray(f["lnprob"])
+        else:
+            chain = np.concatenate(chain_parts, axis=1)
+            lnprobability = np.concatenate(lnp_parts, axis=1)
+        sampler = SamplerResult(chain=chain, lnprobability=lnprobability,
+                                final_state=snapshot(),
+                                acceptance_fraction=accepted_run / max(done, 1))
+        if prefix is not None and n_out and not shard_ckpt:
+            self.save_current_status(sampler, prefix=prefix)
         return sampler
 
     def sample_to_convergence(self, n_walkers: int = 100,
@@ -503,6 +653,8 @@ class Runner:
 
         Returns a :class:`SamplerResult` with two extra attributes: ``tau``
         (the final per-parameter estimate) and ``converged`` (bool).
+        ``mesh=`` (and ``dp_axis``/``sp_axis``) pass through to each chunk's
+        :meth:`__call__`, on every rank.
         """
         if check_every <= 0:
             raise ValueError("check_every must be positive.")
@@ -612,13 +764,18 @@ class Runner:
 
         ``state=`` resumes a prior run's ``result.final_state`` (every
         level's walkers and the generator), continuing the ladder bit for
-        bit; ``n_temps`` is then the state's.  ``mesh=`` (one temperature a
-        device) is not ported yet."""
-        del temp_axis
+        bit; ``n_temps`` is then the state's.
+
+        With ``mesh=`` the ladder is sharded over the mesh's ``temp_axis``:
+        one temperature a rank, swaps in alternating even/odd phases
+        (``parallel.run_tempered_sharded``, the JAX package's sharded
+        scheme); ``n_temps`` is the axis' extent, and the result is whole on
+        every rank."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the multi-device samplers are not ported to torch yet "
-                "(ROADMAP.md, queue 1, item 9).")
+            return self._sample_tempered_sharded(
+                mesh, temp_axis, n_walkers=n_walkers, n_steps=n_steps,
+                beta_min=beta_min, swap_every=swap_every, pos=pos, seed=seed,
+                move=move, state=state)
         lnprob = self.batched_lnprob()
         if state is not None:
             betas = make_beta_ladder(state.coords.shape[0], beta_min)
@@ -630,6 +787,35 @@ class Runner:
                                          n_temps=n_temps, beta_min=beta_min)
         res = run_tempered(lnprob, state, betas, n_steps=n_steps,
                            swap_every=swap_every, move=move)
+        result = SamplerResult(chain=res.chain.cpu().numpy(),
+                               lnprobability=res.log_prob.cpu().numpy(),
+                               final_state=res.final,
+                               acceptance_fraction=res.acceptance_fraction[0]
+                               .cpu().numpy())
+        return result, log_evidence(betas, res.mean_lnp_by_beta)
+
+    def _sample_tempered_sharded(self, mesh, temp_axis, n_walkers, n_steps, beta_min,
+                                 swap_every, pos, seed, move, state):
+        """:meth:`sample_tempered` on a mesh, run by every rank."""
+        from ..parallel.tempered import run_tempered_sharded
+
+        if state is not None:
+            pos, gen = state.coords, state.generator
+            step0, lnp0 = int(state.step), state.log_prob
+        else:
+            if pos is None:
+                pos = self.get_initials(n_walkers)
+            pos = self._to_device(pos)
+            gen = make_generator(self.seed if seed is None else seed, self.device)
+            step0, lnp0 = 0, None
+        res = run_tempered_sharded(self, pos, gen, n_steps=n_steps, mesh=mesh,
+                                   temp_axis=temp_axis, beta_min=beta_min,
+                                   swap_every=swap_every, move=move, step0=step0,
+                                   log_prob0=lnp0)
+        if state is not None:     # the state's counts are cumulative
+            res.final.accepted = res.final.accepted + state.accepted
+            res.final.swaps_accepted = res.final.swaps_accepted + state.swaps_accepted
+        betas = make_beta_ladder(mesh.shape[temp_axis], beta_min)
         result = SamplerResult(chain=res.chain.cpu().numpy(),
                                lnprobability=res.log_prob.cpu().numpy(),
                                final_state=res.final,
@@ -658,19 +844,85 @@ class Runner:
                                           sampler.final_state, prefix=prefix)
 
     @staticmethod
+    def _state_arrays(state) -> Dict[str, np.ndarray]:
+        """A state's checkpoint keys: ``key`` holds the torch generator
+        state and ``key_impl`` is ``"torch"``."""
+        return dict(key=state.generator.get_state().numpy(),
+                    key_impl=np.asarray("torch"),
+                    coords=state.coords.cpu().numpy(),
+                    log_prob=state.log_prob.cpu().numpy(),
+                    accepted=state.accepted.cpu().numpy(),
+                    step=np.asarray(state.step, dtype=np.int32))
+
+    @staticmethod
     def save_current_status_arrays(chain, lnprob, state, prefix: str = "sampler"):
         """``{prefix}_chain.npz`` with the reference's keys from an
         :class:`EnsembleState`, a :class:`TemperedState` (coords (K, W, P))
-        or an :class:`~..sampler.hmc.HMCState`; ``key`` holds the torch
-        generator state and ``key_impl`` is ``"torch"``."""
-        np.savez(f"{prefix}_chain.npz",
-                 chain=np.asarray(chain), lnprob=np.asarray(lnprob),
-                 key=state.generator.get_state().numpy(),
-                 key_impl=np.asarray("torch"),
-                 coords=state.coords.cpu().numpy(),
-                 log_prob=state.log_prob.cpu().numpy(),
-                 accepted=state.accepted.cpu().numpy(),
-                 step=np.asarray(state.step, dtype=np.int32))
+        or an :class:`~..sampler.hmc.HMCState`.  In a world of several ranks
+        only the primary writes, and every rank waits for the file."""
+        from ..parallel.distributed import barrier, is_primary
+
+        if is_primary():
+            np.savez(f"{prefix}_chain.npz", chain=np.asarray(chain),
+                     lnprob=np.asarray(lnprob), **Runner._state_arrays(state))
+        barrier("checkpoint")
+
+    @staticmethod
+    def save_current_status_shards(blocks, state, prefix: str, chain_shape):
+        """A multi-rank checkpoint that never gathers the chain.
+
+        Each rank writes the walker blocks it owns (``blocks``: ``{walker_ids:
+        ([chain chunks (w, s, K)], [lnp chunks])}``, from
+        ``ShardedResult.local_blocks``) to ``{prefix}_chain.shard{r}of{n}.npz``;
+        after a barrier the primary assembles the canonical
+        ``{prefix}_chain.npz`` (the same keys, so :meth:`load_state` and
+        :meth:`read_chain` are unchanged) and deletes the shards.  Needs the
+        checkpoint directory on shared storage.  Returns ``(chain, lnprob)``
+        on the primary and ``(None, None)`` elsewhere."""
+        import torch.distributed as dist
+
+        from ..parallel.distributed import barrier, is_primary
+
+        small = Runner._state_arrays(state)
+        rank, n = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
+                   else (0, 1))
+        arrs = {}
+        for j, (wids, (cparts, lparts)) in enumerate(sorted(blocks.items())):
+            arrs[f"wids_{j}"] = np.asarray(wids, np.int64)
+            arrs[f"chain_{j}"] = np.concatenate(cparts, axis=1)
+            arrs[f"lnp_{j}"] = np.concatenate(lparts, axis=1)
+        np.savez(f"{prefix}_chain.shard{rank}of{n}.npz",
+                 n_blocks=np.asarray(len(blocks)), **arrs)
+        barrier("checkpoint-shards")
+
+        chain = lnp = None
+        if is_primary():
+            filled = np.zeros(chain_shape[0], bool)
+            for q in range(n):
+                with np.load(f"{prefix}_chain.shard{q}of{n}.npz") as f:
+                    for j in range(int(f["n_blocks"])):
+                        block = f[f"chain_{j}"]
+                        if chain is None:
+                            chain = np.empty(chain_shape, block.dtype)
+                            lnp = np.empty(chain_shape[:2], block.dtype)
+                        w = f[f"wids_{j}"]
+                        chain[w] = block
+                        lnp[w] = f[f"lnp_{j}"]
+                        filled[w] = True
+            if not filled.all():
+                raise IOError("checkpoint shard files do not cover every walker "
+                              f"(prefix={prefix!r}); refusing to write a corrupt "
+                              "canonical checkpoint.")
+            np.savez(f"{prefix}_chain.npz", chain=chain, lnprob=lnp, **small)
+            for q in range(n):
+                try:
+                    os.remove(f"{prefix}_chain.shard{q}of{n}.npz")
+                except OSError:
+                    pass
+        # fences the canonical write and the removal (the next chunk writes
+        # the same shard names)
+        barrier("checkpoint-assembled")
+        return chain, lnp
 
     def load_state(self, filename: str) -> EnsembleState:
         """Resumable state (coords, in-run lnP, generator, counters) from a

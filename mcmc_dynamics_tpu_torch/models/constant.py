@@ -186,6 +186,19 @@ class ConstantFitGB(GaussianBackgroundMixin, ConstantFit):
         mixture is not quadratic in theta, so no sufficient tier)."""
         return "gb" if self._canonical_layout() else "generic"
 
+    def build_lnlike_partial_batched(self):
+        """Kernel 5 on a star slice for the canonical layout (Runner hook),
+        else None."""
+        if not self._canonical_layout():
+            return None
+
+        def fn(thetas, data):
+            return constant_gb_lnlike_batched(
+                thetas, data["gx"], data["gy"], data["v"], data["verr"] * data["verr"],
+                data["density"], data["ln_density"], data["mask"])
+
+        return fn
+
     def build_lnprob_gb(self):
         """Batched lnprob through kernel 5."""
         data = self.prepare_data(dict(self._data_arrays))

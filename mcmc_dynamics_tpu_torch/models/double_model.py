@@ -92,6 +92,25 @@ class DoubleModelFit(ModelFit):
         col = [scales.get(n, 1.0) for n in self._KERNEL_FREE_NAMES]
         return self._to_device(col)
 
+    def build_lnlike_partial_batched(self):
+        """The kernel on a star slice for the canonical layout (Runner hook;
+        kernel 7, and kernel 8 for DoubleModelFitGB), else None."""
+        if not self._canonical_layout():
+            return None
+        col_scale = self._internal_col_scale()
+        kernel = self._partial_kernel
+
+        def fn(thetas, data):
+            dxm, dym = data["dxm"], data["dym"]
+            return kernel(thetas * col_scale, dxm, dym, dxm * dxm + dym * dym, data)
+
+        return fn
+
+    @staticmethod
+    def _partial_kernel(thetas, dxm, dym, r2, data):
+        return double_model_lnlike_batched(thetas, dxm, dym, r2, data["v"],
+                                           data["verr"] * data["verr"], data["mask"])
+
     def build_lnprob_kernel(self):
         """Batched lnprob through kernel 7, the joint prior beside it."""
         rows = self._fixed_star_rows()
@@ -136,6 +155,12 @@ class DoubleModelFitGB(GaussianBackgroundMixin, DoubleModelFit):
         return (type(self) is DoubleModelFitGB
                 and self.center_is_fixed()
                 and self.compiled.free_names == self._KERNEL_FREE_NAMES)
+
+    @staticmethod
+    def _partial_kernel(thetas, dxm, dym, r2, data):
+        return double_model_gb_lnlike_batched(
+            thetas, dxm, dym, r2, data["v"], data["verr"] * data["verr"],
+            data["density"], data["ln_density"], data["mask"])
 
     def build_lnprob_kernel(self):
         """Batched lnprob through kernel 8, the joint prior beside it."""

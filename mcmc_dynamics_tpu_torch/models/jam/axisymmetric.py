@@ -20,9 +20,10 @@ semantics are the JAX package's:
 The batched lnprob maps (W, K) walkers to (W,) in walker chunks of
 ``jam_grid_chunk`` (grid tier) or ``lnprob_chunk`` (direct tier), the JAX
 package's values.  Parameters reach the JAM code as (W, 1) columns (numbers for
-fixed ones).  The star-sharded partial likelihood of the JAX package's multi-
-device path (``build_lnlike_partial_batched``) is not ported (ROADMAP.md, queue
-1, item 9).
+fixed ones).  On a star-sharded mesh the grid tier runs on each rank's slice
+of the catalog (``build_lnlike_partial_batched``): the star-independent grid
+solve is repeated per walker on every rank, and only the local stars are
+interpolated.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ logger = logging.getLogger(__name__)
 __all__ = ["Axisymmetric"]
 
 _ARCSEC_PER_RAD = 180.0 * 3600.0 / math.pi
+# the grid tier's per-star bases, sharded with the catalog on a star axis
+_GRID_STAR_COLUMNS = ("t_star", "cos_even", "sin_even", "cos_odd", "sin_odd")
 
 
 def walker_columns(p):
@@ -318,6 +321,40 @@ class Axisymmetric(Runner):
         the working dtype (below it sigma_model^2 is invisible in verr^2 +
         sigma^2)."""
         return max(float(torch.min(self._data_arrays["verr"])) ** 2, 1e-12)
+
+    def sharded_star_data(self):
+        """:meth:`prepare_data`'s columns and, on the grid tier, the grid's
+        per-star bases as ``jam_*`` columns, so a star slice carries its own."""
+        data = super().sharded_star_data()
+        spec = self._jam_grid_spec()
+        if spec is not None:
+            for name in _GRID_STAR_COLUMNS:
+                data[f"jam_{name}"] = getattr(spec, name)
+        return data
+
+    def build_lnlike_partial_batched(self):
+        """The grid tier on a star slice (Runner hook): each rank repeats the
+        star-independent grid solve per walker and interpolates only its own
+        stars, from the slice's ``jam_*`` bases; the log floor comes from the
+        whole catalog (:meth:`_grid_floor`), so every slice interpolates the
+        same field.  None where the grid tier does not apply (the sampler
+        then reduces the direct tier's terms)."""
+        spec = self._jam_grid_spec()
+        if spec is None:
+            return None
+        floor = self._grid_floor()
+        chunk = int(self.jam_grid_chunk)
+
+        def one(thetas, local):
+            lspec = spec._replace(**{name: local[f"jam_{name}"]
+                                     for name in _GRID_STAR_COLUMNS})
+            p = walker_columns(self.scaled_values(thetas))
+            return masked_sum(self._grid_lnlike_terms(lspec, p, local, floor), local)
+
+        def fn(thetas, local):
+            return torch.cat([one(t, local) for t in torch.split(thetas, chunk)])
+
+        return fn
 
     def lnprob_cache_salt(self) -> tuple:
         """The MGE tables, the quadrature orders, the chunks and the tier

@@ -243,6 +243,34 @@ class ModelFit(Runner):
 
         return self._with_prior(lnlike)
 
+    def build_lnlike_partial_batched(self):
+        """The star-sharded partial tier (Runner hook): kernel 1 on a star
+        slice for the fixed-centre canonical layout, kernel 3 on the slice's
+        ``fc_*`` star constants for the free-centre one (at any catalog size:
+        the table tiers do not split over stars), else None."""
+        if self._canonical_layout():
+            col_scale = self._internal_col_scale()
+
+            def fn(thetas, data):
+                dxm, dym = data["dxm"], data["dym"]
+                return model_lnlike_batched(thetas * col_scale, dxm, dym,
+                                            dxm * dxm + dym * dym, data["v"],
+                                            data["verr"] * data["verr"], data["mask"])
+
+            return fn
+        if self._canonical_freecenter_layout():
+            (ra0, dec0, s0, c0), _ = self._freecenter_constants()
+            shift, scale = self._freecenter_col_transform(ra0, dec0)
+
+            def fn(thetas, data):
+                return model_freecenter_lnlike_batched(
+                    (thetas - shift) * scale, data["fc_dx0"], data["fc_dy0"],
+                    data["fc_pm"], data["fc_qm"], data["fc_b0"], data["v"],
+                    data["verr"] * data["verr"], data["mask"], s0=s0, c0=c0)
+
+            return fn
+        return None
+
     def tensor_stats(self) -> ModelTensorStats:
         """The tensor tier's tables for this catalog and prior box, built on
         the host in float64 from the float64 offsets and placed on the
@@ -387,6 +415,32 @@ class _ModelMixtureKernelMixin:
             return Runner.build_lnprob_batched(self)
         return self.build_lnprob_model_mixture()
 
+    def _kernel_col_scale(self) -> torch.Tensor:
+        """Kernel 6's column factors: ``a`` and ``r_peak`` to arcmin, the
+        background columns as they are."""
+        n_extra = len(self._KERNEL_FREE_NAMES) - 6
+        return torch.cat([self._internal_col_scale(),
+                          torch.ones(n_extra, dtype=self.dtype, device=self.device)])
+
+    def build_lnlike_partial_batched(self):
+        """Kernel 6 on a star slice for the canonical layout (Runner hook),
+        else None; ``density``/``ln_density`` from :meth:`prepare_data`, as
+        the full tier takes them."""
+        if not self._canonical_layout():
+            return None
+        col_scale = self._kernel_col_scale()
+        parametric = self._PARAMETRIC_BG
+
+        def fn(thetas, data):
+            dxm, dym = data["dxm"], data["dym"]
+            lnb = data.get("lnlike_fixed_background", torch.zeros_like(data["v"]))
+            return model_mixture_lnlike_batched(
+                thetas * col_scale, dxm, dym, dxm * dxm + dym * dym, data["v"],
+                data["verr"] * data["verr"], data["density"], data["ln_density"],
+                lnb, data["mask"], parametric_bg=parametric)
+
+        return fn
+
     def build_lnprob_model_mixture(self):
         """Batched lnprob through kernel 6: ``a`` and ``r_peak`` scaled to
         arcmin, the background columns as they are."""
@@ -394,9 +448,7 @@ class _ModelMixtureKernelMixin:
         data = self.prepare_data(dict(self._data_arrays))
         density, ln_density = data["density"], data["ln_density"]
         lnb = data.get("lnlike_fixed_background", torch.zeros_like(v))
-        n_extra = len(self._KERNEL_FREE_NAMES) - 6
-        col_scale = torch.cat([self._internal_col_scale(),
-                               torch.ones(n_extra, dtype=self.dtype, device=self.device)])
+        col_scale = self._kernel_col_scale()
         parametric = self._PARAMETRIC_BG
         return self._with_prior(lambda thetas: model_mixture_lnlike_batched(
             thetas * col_scale, dxm, dym, r2, v, verr2, density, ln_density, lnb,

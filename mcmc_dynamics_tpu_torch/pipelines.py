@@ -14,6 +14,11 @@ sampler's leading batch axis, (bins, walkers, params).
   the partition, bit for bit; the generic branch sums a bin's stars over its
   bucket's N_max,k lanes, so there the order of that sum follows the
   packing.
+* ``mesh=`` spreads the bins over the ranks of a mesh axis (one rank a
+  device): every rank draws every bin's randoms from the replicated
+  generator and keeps its own bins' rows, evaluates its bins on the arrays
+  the one-device run builds for them, and the chains are gathered to every
+  rank, so the result is the one-device fit's bit for bit.
 * The JAX package caches its jitted programs (``_PROGRAM_CACHE``); eager torch
   compiles nothing, so there is no program cache here.
 """
@@ -31,7 +36,8 @@ from . import resolve_device
 from . import units as u
 from .models import ConstantFit, Runner
 from .ops.sufficient import ConstantSufficientBins, chebyshev_degree
-from .sampler import init_state, make_generator, run_ensemble
+from .sampler import (draw_step, init_state, make_generator, normalize_move,
+                      run_ensemble, stretch_step)
 from .utils.coordinates import get_amplitude_and_angle, xy_offset_rad
 from .utils.data import DataReader
 from .utils.table import Table
@@ -196,12 +202,48 @@ def _bucketed(parts, n_bins):
     return fn
 
 
+def _bin_slots(n_bins: int, mesh, bin_axis: str) -> np.ndarray:
+    """The bins this rank runs: its block of the bin list padded to a
+    multiple of the axis' extent with copies of bin 0 (sliced off after the
+    gather); every bin without a mesh."""
+    if mesh is None:
+        return np.arange(n_bins)
+    n_dev = mesh.shape[bin_axis]
+    slots = np.concatenate([np.arange(n_bins),
+                            np.zeros((-n_bins) % n_dev, dtype=np.int64)])
+    per = slots.size // n_dev
+    c = mesh.coordinate(bin_axis)
+    return slots[c * per:(c + 1) * per]
+
+
+def _run_bin_slots(lnprob, coords, generator, n_steps, n_bins, mine):
+    """:func:`~.sampler.run_ensemble` for this rank's bins ``mine`` of
+    ``n_bins``: each step draws every bin's randoms (as the one-device run)
+    and keeps the rows of ``mine``.  Returns (chains (L, W, S, K),
+    log_probs (L, W, S))."""
+    moves = normalize_move("stretch")
+    n_walkers, ndim = coords.shape[-2:]
+    rows = torch.as_tensor(mine, device=coords.device)
+    state = init_state(lnprob, coords, generator)
+    chain = torch.empty((n_steps,) + tuple(coords.shape), dtype=coords.dtype,
+                        device=coords.device)
+    lnp = torch.empty((n_steps,) + tuple(coords.shape[:-1]), dtype=coords.dtype,
+                      device=coords.device)
+    for s in range(n_steps):
+        draws = draw_step(moves, generator, n_walkers, ndim, coords.dtype,
+                          coords.device, (n_bins,))
+        draws = [(un[rows], None if eps is None else eps[rows]) for un, eps in draws]
+        state = stretch_step(lnprob, state, draws=draws, move=moves)
+        chain[s], lnp[s] = state.coords, state.log_prob
+    return chain.movedim(0, -2), lnp.movedim(0, -1)
+
+
 def fit_radial_bins(data: DataReader, ra_center, dec_center,
                     parameters=None, model_cls: Type[Runner] = ConstantFit,
                     nstars: int = 50, dlogr: float = 0.2,
                     n_walkers: int = 64, n_steps: int = 300,
                     seed: int = 0, mesh=None, background=None,
-                    device="cuda") -> BinnedFitResult:
+                    device="cuda", bin_axis: str = "dp") -> BinnedFitResult:
     """Bin the catalog radially and fit ``model_cls`` in every bin at once.
 
     The centre is fixed to (ra_center, dec_center); sky offsets are
@@ -210,13 +252,10 @@ def fit_radial_bins(data: DataReader, ra_center, dec_center,
     through its sufficient tables (one Chebyshev degree for every bin, from
     the whole catalog's smallest velocity error); any other centre-fixed
     model class, and ``background=``, through the model's ``lnlike_terms``
-    over the padded bins.  ``mesh=`` (bins spread over devices) is not
-    ported.
+    over the padded bins.  ``mesh=`` spreads the bins over the ranks of its
+    ``bin_axis`` (module docstring); every rank of the mesh calls it, and
+    every rank gets the whole result.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: spreading the bins over several devices is not ported to "
-            "torch yet (ROADMAP.md, queue 1, item 9).")
     device = resolve_device(device)
     if "bin" not in data.data:
         data.make_radial_bins(ra_center, dec_center, nstars=nstars, dlogr=dlogr)
@@ -281,28 +320,42 @@ def fit_radial_bins(data: DataReader, ra_center, dec_center,
         verr2_all = np.asarray(work.value("verr"), np.float64) ** 2
         n_coef = chebyshev_degree(float(verr2_all.min()), s_max, dtype)
 
+    # this rank's bins (every bin without a mesh), each on its bucket's
+    # arrays as the one-device run builds them
+    mine = _bin_slots(n_bins, mesh, bin_axis)
     parts = []
     for bucket in buckets:
+        slots = np.flatnonzero(np.isin(mine, bucket))
+        if slots.size == 0:
+            continue
         arrays, mask_b = packed.padded_bins(columns, bins_subset=bucket)
         if background is not None:
             arr_lnb, _ = packed.padded_bins(["_lnb"], bins_subset=bucket)
             arrays["lnlike_background"] = arr_lnb["_lnb"]
         arrays["mask"] = mask_b
+        rows = np.searchsorted(bucket, mine[slots])
+        arrays = {name: np.asarray(arr)[rows] for name, arr in arrays.items()}
         if use_sufficient:
             fn = _sufficient_lnprob(template, arrays, n_coef, s_max, device, dtype)
         else:
             fn = _generic_lnprob(template, arrays, device, dtype)
-        parts.append((torch.as_tensor(bucket, device=device), fn))
-    lnprob = _bucketed(parts, n_bins)
+        parts.append((torch.as_tensor(slots, device=device), fn))
+    lnprob = _bucketed(parts, mine.size)
 
     # per-bin walker initials, drawn in bin order (as the reference), and one
     # generator for every bin's draws
     coords = np.stack([compiled.sample_initials(n_walkers) for _ in range(n_bins)])
-    state = init_state(lnprob, torch.as_tensor(coords, dtype=dtype, device=device),
-                       make_generator(seed, device))
-    out = run_ensemble(lnprob, state, n_steps=n_steps)
-    chains = out.chain.cpu().numpy()
-    log_probs = out.log_prob.cpu().numpy()
+    coords = torch.as_tensor(coords[mine], dtype=dtype, device=device)
+    gen = make_generator(seed, device)
+    if mesh is None:
+        out = run_ensemble(lnprob, init_state(lnprob, coords, gen), n_steps=n_steps)
+        chains, log_probs = out.chain, out.log_prob
+    else:
+        chains, log_probs = _run_bin_slots(lnprob, coords, gen, n_steps, n_bins, mine)
+        chains = mesh.all_gather(chains.contiguous(), bin_axis)[:n_bins]
+        log_probs = mesh.all_gather(log_probs.contiguous(), bin_axis)[:n_bins]
+    chains = chains.cpu().numpy()
+    log_probs = log_probs.cpu().numpy()
 
     arcmin = 10800.0 / np.pi
     sums = np.bincount(bins_col, weights=r, minlength=n_bins)[:n_bins]

@@ -34,7 +34,8 @@ import torch
 
 __all__ = ["EnsembleState", "EnsembleResult", "init_state", "make_generator",
            "propose_stretch", "propose_de", "propose_snooker", "propose_mixture",
-           "normalize_move", "draw_half", "stretch_step", "run_ensemble"]
+           "normalize_move", "draw_half", "draw_step", "half_update", "stretch_step",
+           "run_ensemble"]
 
 
 @dataclass
@@ -258,6 +259,17 @@ def draw_half(moves, generator: torch.Generator, n: int, ndim: int,
     return un, eps
 
 
+def draw_step(moves, generator: torch.Generator, n_walkers: int, ndim: int,
+              dtype: torch.dtype, device, lead=()):
+    """One full step's draws: :func:`draw_half` for the first half (W // 2
+    walkers), then for the second, each as ``(un, eps)``.  The multi-device
+    samplers draw the whole step on every rank from one replicated generator
+    and take their own walkers' (or bins') slice of it."""
+    half = n_walkers // 2
+    return [draw_half(moves, generator, n, ndim, dtype, device, lead)
+            for n in (half, n_walkers - half)]
+
+
 def _propose_one(name, params, active, pool, un, eps, a):
     kw = dict(params)
     if name == "stretch":
@@ -304,6 +316,18 @@ def propose_mixture(moves, active: torch.Tensor, pool: torch.Tensor,
     return proposals, ln_bias, ln_u
 
 
+def half_update(batched_lnprob: Callable, moves, active: torch.Tensor,
+                active_lnp: torch.Tensor, pool: torch.Tensor, un: torch.Tensor,
+                eps: Optional[torch.Tensor] = None, a: float = 2.0):
+    """One half-ensemble's move: proposals against ``pool`` from the draws
+    ``(un, eps)``, one lnprob call, the Metropolis step.  Returns (coords,
+    log_prob, accepted).  The single-device step and the walker-sharded loop
+    (``parallel/sharded.py``, whose pool is the gathered opposite half) both
+    run it, so their proposals cannot drift apart."""
+    return _accept_update(batched_lnprob, active, active_lnp,
+                          *propose_mixture(moves, active, pool, un, eps, a=a))
+
+
 def _accept_update(batched_lnprob, active, active_lnp, proposals, ln_bias, ln_u):
     new_lnp = batched_lnprob(proposals)
     ln_accept = ln_bias + new_lnp - active_lnp
@@ -331,17 +355,14 @@ def stretch_step(batched_lnprob: Callable, state: EnsembleState, a: float = 2.0,
     lead = tuple(coords.shape[:-2])
     half = n_walkers // 2
     if draws is None:
-        draws = [draw_half(moves, state.generator, n, ndim, coords.dtype,
-                           coords.device, lead)
-                 for n in (half, n_walkers - half)]
+        draws = draw_step(moves, state.generator, n_walkers, ndim, coords.dtype,
+                          coords.device, lead)
     draws = [d if isinstance(d, (tuple, list)) else (d, None) for d in draws]
     c0, c1 = coords[..., :half, :], coords[..., half:, :]
     p0, p1 = state.log_prob[..., :half], state.log_prob[..., half:]
 
-    c0, p0, acc0 = _accept_update(batched_lnprob, c0, p0,
-                                  *propose_mixture(moves, c0, c1, *draws[0], a=a))
-    c1, p1, acc1 = _accept_update(batched_lnprob, c1, p1,
-                                  *propose_mixture(moves, c1, c0, *draws[1], a=a))
+    c0, p0, acc0 = half_update(batched_lnprob, moves, c0, p0, c1, *draws[0], a=a)
+    c1, p1, acc1 = half_update(batched_lnprob, moves, c1, p1, c0, *draws[1], a=a)
 
     return EnsembleState(
         coords=torch.cat([c0, c1], dim=-2),

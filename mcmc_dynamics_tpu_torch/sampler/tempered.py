@@ -31,10 +31,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .stretch import draw_half, normalize_move, propose_mixture
+from .stretch import draw_step, normalize_move, propose_mixture
 
 __all__ = ["TemperedState", "TemperedResult", "make_beta_ladder",
-           "init_tempered", "tempered_step", "run_tempered", "log_evidence"]
+           "init_tempered", "tempered_step", "run_tempered", "log_evidence",
+           "swap_accept"]
 
 
 @dataclass
@@ -114,15 +115,22 @@ def _tempered_half(batched_lnprob, moves, active, active_lnp, pool, beta, un, ep
             torch.where(accept, new_lnp, active_lnp), accept)
 
 
+def swap_accept(ln_u, beta_lo, beta_hi, lnp_lo, lnp_hi):
+    """The replica-swap decision of the pair (lo, hi) of adjacent levels:
+    ``ln u < (beta_lo - beta_hi)(lnP_hi - lnP_lo)``.  Both lnP -inf give NaN,
+    the comparison is False and nothing swaps.  The single-device sweep and
+    the temperature-sharded ladder (``parallel/tempered.py``) both decide
+    through it."""
+    return ln_u < (beta_lo - beta_hi) * (lnp_hi - lnp_lo)
+
+
 def _swap(coords, lnp, betas, u):
     """Replica exchange between adjacent levels, walker-aligned, pairs
     k = 0 ... K-2 in order.  Returns (coords, lnp, swaps (K-1,))."""
     levels, lnps, counts = list(coords.unbind(0)), list(lnp.unbind(0)), []
     ln_u = torch.log(u)
     for k in range(len(levels) - 1):
-        d_beta = betas[k] - betas[k + 1]
-        # both -inf: NaN, the comparison is False, no swap
-        sw = ln_u[k] < d_beta * (lnps[k + 1] - lnps[k])
+        sw = swap_accept(ln_u[k], betas[k], betas[k + 1], lnps[k], lnps[k + 1])
         ck, ck1, pk, pk1 = levels[k], levels[k + 1], lnps[k], lnps[k + 1]
         levels[k] = torch.where(sw[:, None], ck1, ck)
         levels[k + 1] = torch.where(sw[:, None], ck, ck1)
@@ -151,9 +159,8 @@ def tempered_step(batched_lnprob: Callable, state: TemperedState, betas: torch.T
     half = n_walkers // 2
     swap = n_temps > 1 and state.step % swap_every == swap_every - 1
     if draws is None:
-        draws = [draw_half(moves, state.generator, n, ndim, coords.dtype,
-                           coords.device, (n_temps,))
-                 for n in (half, n_walkers - half)]
+        draws = draw_step(moves, state.generator, n_walkers, ndim, coords.dtype,
+                          coords.device, (n_temps,))
         draws.append(torch.rand((n_temps - 1, n_walkers), generator=state.generator,
                                 dtype=coords.dtype, device=coords.device)
                      if swap else None)

@@ -13,7 +13,8 @@ library), builds the JAM models Axisymmetric and AnalyticalProfiles (on the
 direct and the grid tier) and a two-population ChemoProfiles and evaluates
 their lnprob, imports ``cli.run`` and ``cli.cluster_elongation``, runs a
 short tempered ladder, an HMC run and an ``EnsembleSampler`` on its torch and
-its NumPy path with an in-memory ``Backend``, and then looks for ``jax`` and
+its NumPy path with an in-memory ``Backend``, imports ``parallel``, builds a
+one-rank CPU mesh and samples on it, and then looks for ``jax`` and
 for ``mcmc_dynamics_tpu`` and its submodules in ``sys.modules`` (and checks
 that nothing imported matplotlib, pandas or h5py: the port needs none of them
 unless it draws a figure or writes an HDF5 chain).
@@ -162,6 +163,13 @@ for log_prob, kind in ((lambda t: -0.5 * torch.sum(t * t), "torch"),
     assert es.backend_kind == kind, es.backend_kind
     es.run_mcmc(np.random.default_rng(0).normal(size=(8, 2)), 3)
     assert es.get_chain().shape == (3, 8, 2)
+from mcmc_dynamics_tpu_torch import parallel
+mesh = parallel.make_mesh(("dp", "sp"), (1, 1), device="cpu")
+assert mesh.backend == "gloo" and mesh.shape == {"dp": 1, "sp": 1}, mesh
+sharded = parallel.run_ensemble_sharded(fit, fit.get_initials(4), sampler.make_generator(0, "cpu"),
+                                        n_steps=2, mesh=mesh)
+assert sharded.chain.shape == (4, 2, 6), sharded.chain.shape
+parallel.distributed.shutdown()
 assert "h5py" not in sys.modules
 assert "matplotlib" not in sys.modules
 assert "pandas" not in sys.modules

@@ -71,10 +71,11 @@ def test_production_recipe_end_to_end(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("change, match", [
-    ({"parallel": {"axes": {"dp": 4}}}, "item 9"),
+    ({"parallel": {"axes": {"dp": 4}}}, "needs 4 ranks"),
 ])
 def test_unported_blocks_raise(tmp_path, change, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh larger than the world (one process here) is refused."""
+    with pytest.raises(ValueError, match=match):
         run.main([str(reduced_recipe(tmp_path, **change)), "--device", "cpu"])
 
 

@@ -302,6 +302,13 @@ def test_dispersion_only_summary_and_unported_mesh():
     table = res.summary(n_burn=20)
     assert "sigma_max median" in table.colnames
     assert "v_max median" not in table.colnames
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tpl.fit_radial_bins(port_reader(cols), RA_C * u.deg, DEC_C * u.deg,
-                            mesh=object(), device="cpu")
+    # a one-rank mesh (every bin on this rank) gives the same chains
+    from mcmc_dynamics_tpu_torch.parallel import distributed, make_mesh
+    try:
+        on_mesh = tpl.fit_radial_bins(port_reader(cols), RA_C * u.deg, DEC_C * u.deg,
+                                      parameters=params, nstars=100, dlogr=0.1,
+                                      n_walkers=16, n_steps=40, seed=1, device="cpu",
+                                      mesh=make_mesh(("dp",), (1,), device="cpu"))
+    finally:
+        distributed.shutdown()
+    np.testing.assert_array_equal(on_mesh.chains, res.chains)

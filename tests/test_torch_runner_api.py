@@ -154,11 +154,13 @@ def test_call_telemetry_and_unported_mesh(caplog):
          n_threads=4, move=(("de", 0.5), ("snooker", 0.5)))
     assert telemetry.n_walkers == 8 and telemetry.total_steps == 6
     assert len(telemetry.records) == 2 and telemetry.evals_per_sec > 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tfit(n_walkers=8, n_steps=2, prefix=None, mesh=object())
+    # the mesh path records every step: thin is refused before the mesh is read
+    with pytest.raises(NotImplementedError, match="thin= is not supported"):
+        tfit(n_walkers=8, n_steps=2, thin=2, prefix=None, mesh=object())
+    # dp_axis/sp_axis are the mesh path's keywords now; others are warned of
     with caplog.at_level("WARNING"):
-        tfit(n_walkers=8, n_steps=2, prefix=None, dp_axis="dp")
-    assert "dp_axis" in caplog.text
+        tfit(n_walkers=8, n_steps=2, prefix=None, dp_axis="dp", n_chains=2)
+    assert "n_chains" in caplog.text and "dp_axis" not in caplog.text
 
 
 def test_profiling_on_the_cpu(tmp_path):

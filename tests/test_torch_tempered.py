@@ -194,6 +194,10 @@ def test_tempered_state_from_a_jax_state():
 
 
 def test_mesh_is_not_ported():
+    """sample_tempered(mesh=) needs a tp axis in the mesh (the ladder on a
+    mesh itself: tests/test_torch_parallel.py)."""
+    import types
+
     _, fit = _pair(50)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fit.sample_tempered(n_walkers=8, n_steps=2, mesh=object())
+    with pytest.raises(ValueError, match="no axis 'tp'"):
+        fit.sample_tempered(n_walkers=8, n_steps=2, mesh=types.SimpleNamespace(shape={"dp": 1}))
