@@ -158,7 +158,20 @@ calls, and fails (non-zero exit) if any phase does:
     every pair swapping; 25 + 35 ladder steps through ``state=`` bitwise
     equal to 60;
 41. main path M4, path I1 with its bins over dp 2 (a world of two): both
-    ranks' chains path I1's bit for bit.
+    ranks' chains path I1's bit for bit;
+42. the plain tiers: paths A, B, D, E1, E2, F1, F2, G1, G2 and H built again
+    with the kernels' switch (``MCMC_TPU_DISABLE_PALLAS``) set inside the
+    phase: the fit and one half-ensemble lnprob launch no kernel (kernel 10
+    once a fit on E2 and F2, as in the JAX package) and agree with the path's
+    kernel at the tolerance it is held to; one 16384-walker lnprob of each
+    plain tier timed; A sampled 32 walkers x 200 steps under the switch
+    (no launch, finite, final lnP against kernel 1); and each fit in float64
+    on the card (switch unset): no launch while it is built, evaluated and
+    sampled 10 steps, its values against the same fit's on the CPU (rtol
+    1e-10, atol 1e-8).
+
+The script refuses to start (phase 1 fails) when ``MCMC_TPU_DISABLE_PALLAS``
+is set in its environment: its main paths must go through their kernels.
 
 With ``--profile`` rank 0 of each world (and the script for M1's one rank)
 also traces 100 steps of paths M1 and M3 and M4's pipeline.
@@ -298,7 +311,14 @@ def compare(name, got, ref, rtol, atol) -> float:
 def phase_environment():
     import torch
 
+    from mcmc_dynamics_tpu_torch.ops import dispatch
     from mcmc_dynamics_tpu_torch.ops._build import build_library, find_nvcc
+
+    if dispatch.kernels_disabled():
+        # every main path must go through its kernels; phase 42 sets the
+        # switch itself, inside its own block
+        raise AssertionError(f"phase 1: {dispatch.DISABLE_VARIABLE} is set in the "
+                             "environment; unset it to run chip_smoke.py")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -375,7 +395,7 @@ def mock_params(parameters, truth, bounded):
     return parameters
 
 
-def mock_fit(device, n_stars, seed, bounded=True):
+def mock_fit(device, n_stars, seed, bounded=True, dtype=None):
     """ModelFit on the mock catalog: path B (``bounded``, the tensor tier) or
     path H (the default unbounded a/r_peak priors, the binned tier)."""
     from mcmc_dynamics_tpu_torch.models import ModelFit
@@ -383,7 +403,7 @@ def mock_fit(device, n_stars, seed, bounded=True):
     columns, truth = mock_catalog(n_stars, seed)
     params = mock_params(ModelFit.default_parameters(), truth, bounded)
     return ModelFit(port_reader(columns), parameters=params, seed=seed,
-                    device=device), truth
+                    device=device, dtype=dtype), truth
 
 
 def box_params(stats, n_walkers, seed, device, dtype):
@@ -482,7 +502,7 @@ def read_catalog(cfg):
                        "verr": u.Quantity(col["verr"], "km/s")})
 
 
-def load_recipe(device, recipe=RECIPE, model="ModelFit"):
+def load_recipe(device, recipe=RECIPE, model="ModelFit", dtype=None):
     """An omega Cen recipe as ``cli/run.py`` sets it up: the bundled catalog
     and the config's parameter specs on ``model``'s parameter file."""
     from mcmc_dynamics_tpu_torch import models
@@ -494,7 +514,7 @@ def load_recipe(device, recipe=RECIPE, model="ModelFit"):
         params[name].set(**spec)
     sampling = cfg["sampling"]
     fit = cls(read_catalog(cfg), parameters=params, seed=sampling["seed"],
-              device=device)
+              device=device, dtype=dtype)
     return fit, sampling
 
 
@@ -867,7 +887,7 @@ def phase_center_recipe(device):
 FREECENTER_FIXED_KEYS = ("sigma_max",)
 
 
-def freecenter_fit(device):
+def freecenter_fit(device, dtype=None):
     """Path D's fit: the omega Cen catalog, the kinematic specs of
     omega_cen_fixed.json and the centre specs of omega_cen_center.json, both
     centre coordinates sampled."""
@@ -883,7 +903,7 @@ def freecenter_fit(device):
         params[name].set(fixed=False, **center["parameters"][name])
     sampling = fixed["sampling"]
     fit = ModelFit(read_catalog(fixed), parameters=params, seed=sampling["seed"],
-                   device=device)
+                   device=device, dtype=dtype)
     return fit, sampling
 
 
@@ -2034,23 +2054,30 @@ def k1_fit(pkg, **kw):
                seed=cfg["sampling"]["seed"], **kw)
 
 
-class jam_mode:
-    """``MCMC_TPU_JAM`` set to ``mode`` inside the block."""
+class environment:
+    """Environment variable ``name`` set to ``value`` inside the block."""
 
-    def __init__(self, mode):
-        self.mode = mode
+    def __init__(self, name, value):
+        self.name, self.value = name, value
 
     def __enter__(self):
         import os
-        self.saved = os.environ.get("MCMC_TPU_JAM")
-        os.environ["MCMC_TPU_JAM"] = self.mode
+        self.saved = os.environ.get(self.name)
+        os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
         import os
         if self.saved is None:
-            os.environ.pop("MCMC_TPU_JAM", None)
+            os.environ.pop(self.name, None)
         else:
-            os.environ["MCMC_TPU_JAM"] = self.saved
+            os.environ[self.name] = self.saved
+
+
+class jam_mode(environment):
+    """``MCMC_TPU_JAM`` set to ``mode`` inside the block."""
+
+    def __init__(self, mode):
+        super().__init__("MCMC_TPU_JAM", mode)
 
 
 def jam_lnprob(fit, pos, tier):
@@ -3241,6 +3268,201 @@ def profile_m4(device, rank, n_ranks):
 
 PROFILES = {"mesh4": profile_mesh4, "m4": profile_m4}
 
+# ----------------------------------------------------------------------------- plain tiers
+# phase 42, the plain tiers: each path's tier, its kernel, the tolerance that
+# kernel is held to against its plain version, and the path's half-ensemble
+PLAIN_PATHS = {
+    "A": ("direct", "model_lnlike", DIRECT_TOL, 32),
+    "B": ("tensor", "model_tensor", TENSOR_TOL, 512),
+    "D": ("freecenter", "model_freecenter", DIRECT_TOL, 32),
+    "E1": ("gb", "constant_gb", DIRECT_TOL, 128),
+    "E2": ("mixture", "constant_mixture", DIRECT_TOL, 128),
+    "F1": ("model_mixture", "model_mixture", DIRECT_TOL, 128),
+    "F2": ("model_mixture", "model_mixture", DIRECT_TOL, 128),
+    "G1": ("double", "double_model", DIRECT_TOL, 32),
+    "G2": ("double_gb", "double_model_gb", DIRECT_TOL, 128),
+    "H": ("sufficient", "model_sufficient", TENSOR_TOL, 512)}
+# float64 on the card against the same fit's float64 evaluation on the CPU
+FLOAT64_TOL = dict(rtol=1e-10, atol=1e-8)
+PLAIN_TIMED_WALKERS = 16384
+PLAIN_A_RUN = dict(n_walkers=32, n_steps=200)
+PLAIN_F64_STEPS = 10
+
+
+def kernel_switch():
+    """The kernels' environment switch (``ops.dispatch``) set inside the
+    block: every model tier built there binds its plain version."""
+    from mcmc_dynamics_tpu_torch.ops import dispatch
+
+    return environment(dispatch.DISABLE_VARIABLE, "1")
+
+
+class _Recorded:
+    """A background model that gives, at every call, what ``inner`` gave at
+    its first: the CPU twin of a fit reads the card fit's per-star field
+    likelihoods instead of evaluating the KDE again."""
+
+    def __init__(self, inner):
+        self.inner, self.values = inner, None
+
+    def __call__(self, v, verr):
+        if self.values is None:
+            self.values = self.inner(v, verr)
+        return self.values
+
+
+def plain_fit(device, path, catalogs, dtype=None, background=None):
+    """Path ``path``'s fit, built as its phase builds it, in ``dtype``;
+    ``catalogs``: paths E and F's (columns, field catalog); ``background``:
+    E2 and F2's field model (a SingleStars on ``device`` by default)."""
+    from mcmc_dynamics_tpu_torch import models
+    from mcmc_dynamics_tpu_torch.background import SingleStars
+
+    kw = dict(device=device, dtype=dtype)
+    if path == "A":
+        return load_recipe(device, dtype=dtype)[0]
+    if path in ("B", "H"):
+        return mock_fit(device, n_stars=100_000, seed=5, bounded=path == "B",
+                        dtype=dtype)[0]
+    if path == "D":
+        return freecenter_fit(device, dtype=dtype)[0]
+    if path == "G1":
+        cfg = json.loads(RECIPE.read_text())
+        return models.DoubleModelFit(read_catalog(cfg), seed=cfg["sampling"]["seed"],
+                                     parameters=double_recipe_params(
+                                         models.DoubleModelFit.default_parameters()),
+                                     **kw)
+    columns, field = catalogs["E" if path.startswith("E") else "F"]
+    if background is None and path in ("E2", "F2"):
+        background = SingleStars(field, device=device)
+    if path == "E1":
+        return models.ConstantFitGB(port_reader(columns), parameters=contaminated_params(
+            models.ConstantFitGB.default_parameters(), gb=True), seed=22, **kw)
+    if path == "E2":
+        return models.ConstantFit(
+            port_reader({n: c for n, c in columns.items() if n != "density"}),
+            parameters=contaminated_params(models.ConstantFit.default_parameters(),
+                                           gb=False),
+            seed=23, background=background, **kw)
+    return radial_fit(models, port_reader, path, columns, background, **kw)
+
+
+def _no_launches(label, kde):
+    """Every kernel counter at 0 but kernel 10's, which may count ``kde``
+    launches (a SingleStars on the card evaluates its KDE once a fit)."""
+    counts = _counts()
+    launched = {name: n for name, n in counts.items()
+                if n and not (name == "background_lse" and n <= kde)}
+    if launched:
+        raise AssertionError(f"phase 42 {label}: kernels launched {launched}")
+
+
+def _share_tables(src, dst):
+    """``dst``'s table tier (B's tensor, H's binned tables) reads ``src``'s
+    tables, moved to its device, instead of building them again."""
+    name = {"tensor": "tensor_stats",
+            "sufficient": "sufficient_stats"}.get(src.lnprob_tier())
+    if name is not None:
+        stats = getattr(src, name)()
+        setattr(src, name, lambda: stats)
+        setattr(dst, name, lambda: stats.to(dst.device))
+
+
+def phase_plain_tiers(device, catalogs, kernel_fits, n_timed=PLAIN_TIMED_WALKERS,
+                      a_run=PLAIN_A_RUN):
+    """Phase 42: the plain tiers on the card.  For each of paths A, B, D,
+    E1, E2, F1, F2, G1, G2 and H: with the kernels' switch set, the fit built
+    and one half-ensemble lnprob evaluated launch no kernel (kernel 10 once on
+    E2 and F2, for the KDE) and agree with the path's kernel on the same
+    walkers at the tolerance that kernel is held to; one ``n_timed``-walker
+    lnprob of the plain tier is timed.  In float64 on the card with the
+    switch unset, the fit built, the half-ensemble evaluated and
+    ``PLAIN_F64_STEPS`` steps sampled launch no kernel either, and the values
+    agree with the same fit's float64 evaluation on the CPU (FLOAT64_TOL).
+    Path A also samples ``a_run`` under the switch: no launch, a finite
+    chain, the final lnP against kernel 1 at DIRECT_TOL.  ``kernel_fits``:
+    fits whose kernel tier is already built (B's and H's tables)."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.ops import dispatch
+
+    cpu = torch.device("cpu")
+
+    def timed(fn):
+        if device.type == "cuda":
+            return cuda_ms(fn, reps=5, warmup=1)
+        return wall_ms(fn, reps=2)
+
+    out = {}
+    for path, (tier, kernel, tol, n_half) in PLAIN_PATHS.items():
+        t_start = time.perf_counter()
+        kde = 1 if path in ("E2", "F2") else 0
+        row = {}
+        with kernel_switch():
+            _zero_counts()
+            fit = plain_fit(device, path, catalogs)
+            if fit.lnprob_tier() != tier:
+                raise AssertionError(f"phase 42 {path}: tier {fit.lnprob_tier()}, "
+                                     f"expected {tier}")
+            thetas = fit.get_initials(n_half)
+            lnprob = fit.batched_lnprob()
+            plain = lnprob(fit._to_device(thetas))
+            big = fit._to_device(fit.get_initials(n_timed))
+            row["plain_ms"] = timed(lambda: lnprob(big))
+            del big
+            if path == "A":
+                pos = fit.get_initials(a_run["n_walkers"])
+                run, seconds = timed_run(fit, pos=pos, prefix=None, **a_run)
+                if not (np.isfinite(run.chain).all()
+                        and np.isfinite(run.lnprobability).all()):
+                    raise AssertionError("phase 42 A: the chain under the switch "
+                                         "is not finite")
+                row["run_ms_per_step"] = seconds / a_run["n_steps"] * 1e3
+                row["acceptance"] = float(np.mean(run.acceptance_fraction))
+            _sync(device)
+            _no_launches(f"{path} ({dispatch.DISABLE_VARIABLE} set)", kde)
+        # the kernel's values on the same walkers (launches for the
+        # comparison, not a main path's)
+        by_kernel = kernel_fits.get(path, fit).batched_lnprob()
+        row["switch_err"] = compare(f"phase 42 {path}: plain tier vs {kernel}", plain,
+                                    by_kernel(fit._to_device(thetas)), **tol)
+        if path == "A":
+            row["run_err"] = compare(
+                "phase 42 A: final lnP under the switch vs kernel 1",
+                torch.as_tensor(run.lnprobability[:, -1]),
+                by_kernel(fit._to_device(run.chain[:, -1])), **DIRECT_TOL)
+        del fit, lnprob, by_kernel
+
+        _zero_counts()
+        background = None
+        if kde:
+            from mcmc_dynamics_tpu_torch.background import SingleStars
+
+            background = _Recorded(SingleStars(catalogs[path[0]][1], device=device))
+        fit64 = plain_fit(device, path, catalogs, torch.float64, background)
+        twin = plain_fit(cpu, path, catalogs, torch.float64, background)
+        _share_tables(fit64, twin)
+        if fit64.lnprob_tier() != tier:
+            raise AssertionError(f"phase 42 {path}: float64 tier "
+                                 f"{fit64.lnprob_tier()}, expected {tier}")
+        on_card = fit64.batched_lnprob()(fit64._to_device(thetas))
+        run64 = fit64(n_walkers=2 * n_half, n_steps=PLAIN_F64_STEPS,
+                      pos=fit64.get_initials(2 * n_half), prefix=None)
+        if not np.isfinite(run64.lnprobability).all():
+            raise AssertionError(f"phase 42 {path}: float64 chain not finite")
+        _sync(device)
+        _no_launches(f"{path} (float64)", kde)
+        row["f64_err"] = compare(f"phase 42 {path}: float64 card vs CPU", on_card,
+                                 twin.batched_lnprob()(twin._to_device(thetas)),
+                                 **FLOAT64_TOL)
+        row["s"] = time.perf_counter() - t_start
+        out[path] = row
+        del fit64, twin, on_card, run64
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3622,6 +3844,27 @@ def main(argv=None) -> int:
           f"{m4['launches']}")
     for line in m1c["profile"] + profiles + (m4.get("profile") or []):
         print(line)
+
+    t0 = time.perf_counter()
+    plain = phase_plain_tiers(
+        device, {"E": (columns, field_catalog), "F": (f_columns, f_field)},
+        {"B": mock_b, "H": mock_h})
+    a = plain["A"]
+    errors = {key: json.dumps({p: float(f"{r[key]:.4g}") for p, r in plain.items()})
+              for key in ("switch_err", "f64_err")}
+    print(f"phase 42 plain tiers (the kernels' switch set, and float64 on the card): "
+          f"no kernel launched on paths {', '.join(PLAIN_PATHS)} (kernel 10 once a "
+          f"fit on E2 and F2) | switch: max |d| vs the path's kernel "
+          f"{errors['switch_err']} | float64, {PLAIN_F64_STEPS} steps sampled on "
+          f"each: max |d| vs the CPU {errors['f64_err']} (gate {FLOAT64_TOL}) | A "
+          f"under the switch, {PLAIN_A_RUN['n_walkers']} "
+          f"walkers x {PLAIN_A_RUN['n_steps']} steps: {a['run_ms_per_step']:.4f} "
+          f"ms/step untraced, acceptance {a['acceptance']:.3f}, final lnP vs kernel 1 "
+          f"max |d| {a['run_err']:.4g} | {time.perf_counter() - t0:.1f} s")
+    print(f"  plain tiers, one {PLAIN_TIMED_WALKERS}-walker lnprob (ms, CUDA events, "
+          f"median of 5): "
+          f"{json.dumps({p: round(r['plain_ms'], 4) for p, r in plain.items()})} | "
+          f"seconds a path {json.dumps({p: round(r['s'], 2) for p, r in plain.items()})}")
 
     if profiling:
         fit_a, _ = load_recipe(device)

@@ -26,6 +26,7 @@ import torch
 from .. import default_dtype, resolve_device
 from .. import units as u
 from ..expressions import compile_torch
+from ..ops import dispatch
 from ..parameters import CompiledParameters, Parameters
 from ..sampler.diagnostics import AutocorrError, autocorr_time
 from ..sampler.hmc import init_hmc, run_hmc
@@ -166,8 +167,18 @@ class Runner:
         return self.compiled.n_free
 
     @property
+    def units(self):
+        """Every parameter's declared unit, by name."""
+        return {n: p.unit for n, p in self.parameters.items()}
+
+    @property
     def labels(self):
         return [self.parameters[n].plot_label() for n in self.fitted_parameters]
+
+    def observed(self, name: str) -> torch.Tensor:
+        """The observed column ``name`` as the likelihood reads it: internal
+        units, on the model's device in its dtype."""
+        return self._data_arrays[name]
 
     # ------------------------------------------------------------------ batched pieces
     def scaled_values(self, theta: torch.Tensor) -> Dict[str, object]:
@@ -256,37 +267,66 @@ class Runner:
         p = self.scaled_values(self._one_walker(theta))
         return self.lnlike_fn(p, self.prepare_data(dict(self._data_arrays)))
 
-    def lnprob(self, theta) -> torch.Tensor:
-        """Log-posterior of one parameter vector: prior, joint prior and
-        ``lnlike_fn`` (the reference's per-walker closure, ``base.py:229-242``)."""
-        thetas = self._one_walker(theta)
-        lp = self.compiled.lnprior(thetas)
-        p = self.scaled_values(thetas)
-        lp = lp + self.extra_lnprior_fn(p)
-        ll = self.lnlike_fn(p, self.prepare_data(dict(self._data_arrays)))
-        return torch.where(torch.isfinite(lp), lp + ll,
-                           torch.full_like(lp, -math.inf))[0]
+    def build_lnprob(self) -> Callable:
+        """The pure log-posterior of one parameter vector: ``theta`` (K,) in
+        declared units -> a scalar: prior, joint prior and ``lnlike_fn``, -inf
+        where the prior is not finite (the reference's per-walker closure,
+        ``base.py:229-242``).  Plain torch on the model's device, not a
+        kernel tier."""
+        compiled = self.compiled
+        data = self.prepare_data(dict(self._data_arrays))
 
-    def lnprob_cache_salt(self) -> tuple:
+        def lnprob(theta):
+            thetas = self._one_walker(theta)
+            lp = compiled.lnprior(thetas)
+            p = self.scaled_values(thetas)
+            lp = lp + self.extra_lnprior_fn(p)
+            ll = self.lnlike_fn(p, data)
+            return torch.where(torch.isfinite(lp), lp + ll,
+                               torch.full_like(lp, -math.inf))[0]
+
+        return lnprob
+
+    def lnprob(self, theta) -> torch.Tensor:
+        """Log-posterior of one parameter vector (:meth:`build_lnprob`)."""
+        return self.build_lnprob()(theta)
+
+    def program_cache_salt(self) -> tuple:
         """Hook: the model's settings besides its parameters that
         ``build_lnprob_batched`` reads (the JAM models' MGE, quadrature orders,
-        chunks and tier knobs); none by default."""
+        chunks and tier knobs); none by default.  A change of it rebuilds the
+        cached tiers and the star-sharded slices."""
         return ()
+
+    def _kernel_tier(self, tier: str) -> bool:
+        """:func:`ops.use_kernel` for this model's device and dtype, consulted
+        once as ``tier`` is built and logged: ``kernel``, or ``plain`` and
+        why.  False binds the plain version beside the kernel."""
+        why = dispatch.plain_reason(self.device, self.dtype)
+        logger.info("%s %s tier: %s", type(self).__name__, tier,
+                    "kernel" if why is None else f"plain ({why})")
+        return why is None
+
+    def _tier_cached(self, slot: str, build: Callable):
+        """``build()``, kept in attribute ``slot`` and rebuilt only when the
+        parameters, the tier choice (``MCMC_TPU_LNPROB``), the kernel switch
+        (:func:`ops.dispatch.kernels_disabled`) or
+        :meth:`program_cache_salt` change."""
+        _ = self.compiled  # refresh fingerprint
+        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"),
+               dispatch.kernels_disabled(), self.program_cache_salt())
+        cached = getattr(self, slot)
+        if cached is None or cached[0] != key:
+            cached = (key, build())
+            setattr(self, slot, cached)
+        return cached[1]
 
     def batched_lnprob(self) -> Callable:
         """The batched lnprob the sampler runs: ``build_lnprob_batched``,
-        rebuilt only when the parameters, the tier choice
-        (``MCMC_TPU_LNPROB``) or :meth:`lnprob_cache_salt` change.  Building
-        it is the set-up cost of a tier (the tensor tier's tables); later
-        calls return the same one."""
-        _ = self.compiled  # refresh fingerprint
-        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"),
-               self.lnprob_cache_salt())
-        cached = self._lnprob_batched_cache
-        if cached is None or cached[0] != key:
-            cached = (key, self.build_lnprob_batched())
-            self._lnprob_batched_cache = cached
-        return cached[1]
+        rebuilt only when :meth:`_tier_cached`'s key changes.  Building it
+        is the set-up cost of a tier (the tensor tier's tables); later calls
+        return the same one."""
+        return self._tier_cached("_lnprob_batched_cache", self.build_lnprob_batched)
 
     def build_lnlike_partial_batched(self) -> Optional[Callable]:
         """Hook: the model's fused partial log-likelihood, or None.
@@ -308,14 +348,8 @@ class Runner:
     def _partial_tier_cached(self) -> Optional[Callable]:
         """:meth:`build_lnlike_partial_batched`, rebuilt only when
         :meth:`batched_lnprob` would be."""
-        _ = self.compiled  # refresh fingerprint
-        key = (self._compiled_fp, os.environ.get("MCMC_TPU_LNPROB", "auto"),
-               self.lnprob_cache_salt())
-        cached = self._partial_tier_cache
-        if cached is None or cached[0] != key:
-            cached = (key, self.build_lnlike_partial_batched())
-            self._partial_tier_cache = cached
-        return cached[1]
+        return self._tier_cached("_partial_tier_cache",
+                                 self.build_lnlike_partial_batched)
 
     def build_lnprob_differentiable(self) -> Callable:
         """The batched lnprob (W, K) -> (W,) that HMC differentiates: the

@@ -20,6 +20,9 @@ The batched lnprob takes the reference's tiers (``constant.py:96-160``,
 The reference takes the kernel tiers only while the star table fits the TPU's
 8 MB VMEM budget (``star_table_fits_vmem``); on the card the star table is
 read from global memory and L2, so that condition does not apply here.
+Each kernel tier consults ``ops.use_kernel`` once, as it is built, and binds
+the kernel's plain torch version where that is false (the CPU, float64, the
+environment switch).
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import numpy as np
 import torch
 
 from ..ops.lnlike_kernels import (constant_gb_lnlike_batched,
-                                  constant_mixture_lnlike_batched)
+                                  constant_gb_lnlike_reference,
+                                  constant_mixture_lnlike_batched,
+                                  constant_mixture_lnlike_reference)
 from ..ops.sufficient import ConstantSufficientStats
 from ..utils.coordinates import xy_offset_rad
 from .base import (GaussianBackgroundMixin, Runner, gaussian_lnlike_terms,
@@ -143,8 +148,9 @@ class ConstantFit(Runner):
         return self._with_prior(lnlike)
 
     def build_lnprob_mixture(self):
-        """Batched lnprob through kernel 4: the log membership weights are
-        float64 host columns with the reference's clips."""
+        """Batched lnprob through kernel 4 or its plain version: the log
+        membership weights are float64 host columns with the reference's
+        clips."""
         gx, gy = (self._to_device(g) for g in self._fixed_gradients())
         v = self._data_arrays["v"]
         verr2 = self._to_device(self._host_arrays["verr"] ** 2)
@@ -153,8 +159,13 @@ class ConstantFit(Runner):
         lgp = self._to_device(np.log(pm))
         lg1mp = self._to_device(np.log1p(-np.clip(pm, 0.0, 1.0 - 1e-16)))
         lnb = self._data_arrays["lnlike_background"]
-        return self._with_prior(lambda thetas: constant_mixture_lnlike_batched(
-            thetas, gx, gy, v, verr2, lgp, lg1mp, lnb, mask))
+        if self._kernel_tier("mixture"):
+            return self._with_prior(lambda thetas: constant_mixture_lnlike_batched(
+                thetas, gx, gy, v, verr2, lgp, lg1mp, lnb, mask))
+        # the plain version takes the background branch precombined
+        lgb = lg1mp + lnb
+        return self._with_prior(lambda thetas: constant_mixture_lnlike_reference(
+            thetas, gx, gy, v, verr2, lgp, lgb, mask))
 
 
 class ConstantFitGB(GaussianBackgroundMixin, ConstantFit):
@@ -191,20 +202,27 @@ class ConstantFitGB(GaussianBackgroundMixin, ConstantFit):
         else None."""
         if not self._canonical_layout():
             return None
+        kernel = self._kernel_tier("gb partial")
 
         def fn(thetas, data):
-            return constant_gb_lnlike_batched(
+            lnlike = constant_gb_lnlike_batched if kernel else constant_gb_lnlike_reference
+            return lnlike(
                 thetas, data["gx"], data["gy"], data["v"], data["verr"] * data["verr"],
                 data["density"], data["ln_density"], data["mask"])
 
         return fn
 
     def build_lnprob_gb(self):
-        """Batched lnprob through kernel 5."""
+        """Batched lnprob through kernel 5 or its plain version."""
         data = self.prepare_data(dict(self._data_arrays))
         gx, gy, v = data["gx"], data["gy"], data["v"]
         verr2 = self._to_device(self._host_arrays["verr"] ** 2)
         mask = torch.ones_like(v)
         density, ln_density = data["density"], data["ln_density"]
-        return self._with_prior(lambda thetas: constant_gb_lnlike_batched(
-            thetas, gx, gy, v, verr2, density, ln_density, mask))
+        kernel = self._kernel_tier("gb")
+
+        def lnlike(thetas):
+            fn = constant_gb_lnlike_batched if kernel else constant_gb_lnlike_reference
+            return fn(thetas, gx, gy, v, verr2, density, ln_density, mask)
+
+        return self._with_prior(lnlike)

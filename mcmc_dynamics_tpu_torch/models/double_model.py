@@ -11,7 +11,9 @@ adds ``0 <= f_back <= 1`` and ``0 < sigma_back <= 100 km/s``).
 
 Tiers: ``double`` (kernel 7) and ``double_gb`` (kernel 8) for the canonical
 layouts (centre fixed, every kinematic parameter sampled, the exact class),
-``generic`` (plain torch) otherwise.  A component held at v_max = 0 rotates by
+``generic`` (plain torch) otherwise; the kernel tiers bind their kernel's
+plain version where ``ops.use_kernel`` is false (the CPU, float64, the
+environment switch).  A component held at v_max = 0 rotates by
 exactly 0, in float32 too: the reference's float32 evaluation divides 0 by 0
 there.
 """
@@ -23,7 +25,9 @@ import logging
 import torch
 
 from ..ops.lnlike_kernels import (double_model_gb_lnlike_batched,
-                                  double_model_lnlike_batched)
+                                  double_model_gb_lnlike_reference,
+                                  double_model_lnlike_batched,
+                                  double_model_lnlike_reference)
 from .base import GaussianBackgroundMixin, Runner, log_indicator
 from .model import ModelFit, lynden_bell_profile
 
@@ -98,25 +102,34 @@ class DoubleModelFit(ModelFit):
         if not self._canonical_layout():
             return None
         col_scale = self._internal_col_scale()
-        kernel = self._partial_kernel
+        partial = self._partial_kernel
+        kernel = self._kernel_tier(f"{self._TIER} partial")
 
         def fn(thetas, data):
             dxm, dym = data["dxm"], data["dym"]
-            return kernel(thetas * col_scale, dxm, dym, dxm * dxm + dym * dym, data)
+            return partial(thetas * col_scale, dxm, dym, dxm * dxm + dym * dym, data,
+                           kernel)
 
         return fn
 
     @staticmethod
-    def _partial_kernel(thetas, dxm, dym, r2, data):
-        return double_model_lnlike_batched(thetas, dxm, dym, r2, data["v"],
-                                           data["verr"] * data["verr"], data["mask"])
+    def _partial_kernel(thetas, dxm, dym, r2, data, kernel):
+        fn = double_model_lnlike_batched if kernel else double_model_lnlike_reference
+        return fn(thetas, dxm, dym, r2, data["v"], data["verr"] * data["verr"],
+                  data["mask"])
 
     def build_lnprob_kernel(self):
-        """Batched lnprob through kernel 7, the joint prior beside it."""
+        """Batched lnprob through kernel 7 or its plain version, the joint
+        prior beside it."""
         rows = self._fixed_star_rows()
         col_scale = self._internal_col_scale()
-        return self._with_prior(lambda thetas: double_model_lnlike_batched(
-            thetas * col_scale, *rows))
+        kernel = self._kernel_tier(self._TIER)
+
+        def lnlike(thetas):
+            fn = double_model_lnlike_batched if kernel else double_model_lnlike_reference
+            return fn(thetas * col_scale, *rows)
+
+        return self._with_prior(lnlike)
 
     # ------------------------------------------------------------------ post-processing
     def rotation_profile(self, flat, radii):
@@ -157,16 +170,25 @@ class DoubleModelFitGB(GaussianBackgroundMixin, DoubleModelFit):
                 and self.compiled.free_names == self._KERNEL_FREE_NAMES)
 
     @staticmethod
-    def _partial_kernel(thetas, dxm, dym, r2, data):
-        return double_model_gb_lnlike_batched(
-            thetas, dxm, dym, r2, data["v"], data["verr"] * data["verr"],
-            data["density"], data["ln_density"], data["mask"])
+    def _partial_kernel(thetas, dxm, dym, r2, data, kernel):
+        fn = (double_model_gb_lnlike_batched if kernel
+              else double_model_gb_lnlike_reference)
+        return fn(thetas, dxm, dym, r2, data["v"], data["verr"] * data["verr"],
+                  data["density"], data["ln_density"], data["mask"])
 
     def build_lnprob_kernel(self):
-        """Batched lnprob through kernel 8, the joint prior beside it."""
+        """Batched lnprob through kernel 8 or its plain version, the joint
+        prior beside it."""
         dxm, dym, r2, v, verr2, mask = self._fixed_star_rows()
         data = self.prepare_data(dict(self._data_arrays))
         density, ln_density = data["density"], data["ln_density"]
         col_scale = self._internal_col_scale()
-        return self._with_prior(lambda thetas: double_model_gb_lnlike_batched(
-            thetas * col_scale, dxm, dym, r2, v, verr2, density, ln_density, mask))
+        kernel = self._kernel_tier(self._TIER)
+
+        def lnlike(thetas):
+            fn = (double_model_gb_lnlike_batched if kernel
+                  else double_model_gb_lnlike_reference)
+            return fn(thetas * col_scale, dxm, dym, r2, v, verr2, density, ln_density,
+                      mask)
+
+        return self._with_prior(lnlike)

@@ -356,7 +356,7 @@ class Axisymmetric(Runner):
 
         return fn
 
-    def lnprob_cache_salt(self) -> tuple:
+    def program_cache_salt(self) -> tuple:
         """The MGE tables, the quadrature orders, the chunks and the tier
         knobs: a change of any of them rebuilds the batched lnprob."""
         h = hashlib.sha1()

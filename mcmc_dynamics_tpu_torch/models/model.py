@@ -27,6 +27,11 @@ The field-star mixtures ``ModelFitGB`` (a sampled Gaussian background) and
 ``model_mixture`` tier (kernel 6) for their canonical layout and ``generic``
 otherwise: a density mixture is not quadratic in the parameters, so neither
 table tier applies to them, at any catalog size.
+
+Each kernel tier consults ``ops.use_kernel`` once, as it is built: on a
+CUDA device in float32 with the kernels enabled it launches its kernel,
+otherwise (the CPU, float64, the environment switch) it binds the plain
+torch version beside the kernel.  The tier's name stays the same.
 """
 
 from __future__ import annotations
@@ -41,7 +46,10 @@ import torch
 from .. import units as u
 from ..utils.table import Table
 from ..ops.lnlike_kernels import (model_freecenter_lnlike_batched,
-                                  model_lnlike_batched, model_mixture_lnlike_batched)
+                                  model_freecenter_lnlike_reference,
+                                  model_lnlike_batched, model_lnlike_reference,
+                                  model_mixture_lnlike_batched,
+                                  model_mixture_lnlike_reference)
 from ..ops.model_sufficient import ModelSufficientStats, model_sufficient_lnlike
 from ..ops.model_tensor import ModelTensorStats, model_tensor_lnlike
 from ..utils.coordinates import xy_offset_rad
@@ -202,11 +210,17 @@ class ModelFit(Runner):
         return dxm, dym, r2, v, verr2, torch.ones_like(v)
 
     def build_lnprob_direct(self):
-        """Batched lnprob through the direct walker x star kernel."""
+        """Batched lnprob through the direct walker x star kernel (kernel 1)
+        or its plain version."""
         rows = self._fixed_star_rows()
         col_scale = self._internal_col_scale()
-        return self._with_prior(lambda thetas: model_lnlike_batched(
-            thetas * col_scale, *rows))
+        kernel = self._kernel_tier("direct")
+
+        def lnlike(thetas):
+            fn = model_lnlike_batched if kernel else model_lnlike_reference
+            return fn(thetas * col_scale, *rows)
+
+        return self._with_prior(lnlike)
 
     def _freecenter_col_transform(self, ra0: float, dec0: float):
         """(shift, scale) turning a free-centre theta into the kernel's
@@ -234,12 +248,14 @@ class ModelFit(Runner):
         verr2 = self._to_device(self._host_arrays["verr"] ** 2)
         mask = torch.ones_like(v)
         shift, scale = self._freecenter_col_transform(ra0, dec0)
+        kernel = self._kernel_tier("freecenter")
 
         def lnlike(thetas):
+            fn = (model_freecenter_lnlike_batched if kernel
+                  else model_freecenter_lnlike_reference)
             # subtract in declared units in the working dtype, then scale
-            return model_freecenter_lnlike_batched(
-                (thetas - shift) * scale, dx0, dy0, pm, qm, b0, v, verr2, mask,
-                s0=s0, c0=c0)
+            return fn((thetas - shift) * scale, dx0, dy0, pm, qm, b0, v, verr2, mask,
+                      s0=s0, c0=c0)
 
         return self._with_prior(lnlike)
 
@@ -250,20 +266,24 @@ class ModelFit(Runner):
         the table tiers do not split over stars), else None."""
         if self._canonical_layout():
             col_scale = self._internal_col_scale()
+            kernel = self._kernel_tier("direct partial")
 
             def fn(thetas, data):
+                lnlike = model_lnlike_batched if kernel else model_lnlike_reference
                 dxm, dym = data["dxm"], data["dym"]
-                return model_lnlike_batched(thetas * col_scale, dxm, dym,
-                                            dxm * dxm + dym * dym, data["v"],
-                                            data["verr"] * data["verr"], data["mask"])
+                return lnlike(thetas * col_scale, dxm, dym, dxm * dxm + dym * dym,
+                              data["v"], data["verr"] * data["verr"], data["mask"])
 
             return fn
         if self._canonical_freecenter_layout():
             (ra0, dec0, s0, c0), _ = self._freecenter_constants()
             shift, scale = self._freecenter_col_transform(ra0, dec0)
+            kernel = self._kernel_tier("freecenter partial")
 
             def fn(thetas, data):
-                return model_freecenter_lnlike_batched(
+                lnlike = (model_freecenter_lnlike_batched if kernel
+                          else model_freecenter_lnlike_reference)
+                return lnlike(
                     (thetas - shift) * scale, data["fc_dx0"], data["fc_dy0"],
                     data["fc_pm"], data["fc_qm"], data["fc_b0"], data["v"],
                     data["verr"] * data["verr"], data["mask"], s0=s0, c0=c0)
@@ -295,13 +315,14 @@ class ModelFit(Runner):
         stats = self.tensor_stats()
         col_scale = self._internal_col_scale()
         lnprior = self.compiled.lnprior
+        kernel = self._kernel_tier("tensor")
 
         def batched(thetas):
             lp = lnprior(thetas)
             ti = thetas * col_scale
             ok = torch.isfinite(lp) & stats.in_box(ti)
-            return torch.where(ok, lp + model_tensor_lnlike(stats, ti),
-                               torch.full_like(lp, -math.inf))
+            ll = model_tensor_lnlike(stats, ti) if kernel else stats.lnlike(ti)
+            return torch.where(ok, lp + ll, torch.full_like(lp, -math.inf))
 
         return batched
 
@@ -323,8 +344,13 @@ class ModelFit(Runner):
         -inf (the reference's grid guard)."""
         stats = self.sufficient_stats()
         col_scale = self._internal_col_scale()
-        lnprob = self._with_prior(lambda thetas: model_sufficient_lnlike(
-            stats, thetas * col_scale))
+        kernel = self._kernel_tier("sufficient")
+
+        def lnlike(thetas):
+            ti = thetas * col_scale
+            return model_sufficient_lnlike(stats, ti) if kernel else stats.lnlike(ti)
+
+        lnprob = self._with_prior(lnlike)
 
         def batched(thetas):
             in_grid = thetas[:, 1] * thetas[:, 1] <= stats.s_max
@@ -430,11 +456,14 @@ class _ModelMixtureKernelMixin:
             return None
         col_scale = self._kernel_col_scale()
         parametric = self._PARAMETRIC_BG
+        kernel = self._kernel_tier("model_mixture partial")
 
         def fn(thetas, data):
+            lnlike = (model_mixture_lnlike_batched if kernel
+                      else model_mixture_lnlike_reference)
             dxm, dym = data["dxm"], data["dym"]
             lnb = data.get("lnlike_fixed_background", torch.zeros_like(data["v"]))
-            return model_mixture_lnlike_batched(
+            return lnlike(
                 thetas * col_scale, dxm, dym, dxm * dxm + dym * dym, data["v"],
                 data["verr"] * data["verr"], data["density"], data["ln_density"],
                 lnb, data["mask"], parametric_bg=parametric)
@@ -450,9 +479,15 @@ class _ModelMixtureKernelMixin:
         lnb = data.get("lnlike_fixed_background", torch.zeros_like(v))
         col_scale = self._kernel_col_scale()
         parametric = self._PARAMETRIC_BG
-        return self._with_prior(lambda thetas: model_mixture_lnlike_batched(
-            thetas * col_scale, dxm, dym, r2, v, verr2, density, ln_density, lnb,
-            mask, parametric_bg=parametric))
+        kernel = self._kernel_tier("model_mixture")
+
+        def lnlike(thetas):
+            fn = (model_mixture_lnlike_batched if kernel
+                  else model_mixture_lnlike_reference)
+            return fn(thetas * col_scale, dxm, dym, r2, v, verr2, density, ln_density,
+                      lnb, mask, parametric_bg=parametric)
+
+        return self._with_prior(lnlike)
 
 
 class ModelFitGB(_ModelMixtureKernelMixin, GaussianBackgroundMixin, ModelFit):

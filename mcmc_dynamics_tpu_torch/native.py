@@ -3,13 +3,15 @@
 the greedy radial binning.
 
 The port's own binding (it imports nothing of ``mcmc_dynamics_tpu``): the
-library is compiled with ``g++`` at first use into
-``mcmc_dynamics_tpu_torch/_build/native-<digest of the source>/`` (a directory
-``.gitignore`` lists), written under a temporary name and renamed into place,
-so a killed or concurrent build never leaves a truncated library where a later
-load would find it.  As in the JAX package, every entry point returns None
-(or False) when no compiler or library is available, and its callers then take
-their NumPy paths, which give the same answers.
+library is compiled with ``g++`` at first use into ``native-<digest of the
+source>/`` under :func:`cache_root`: ``$MCMCD_NATIVE_CACHE`` when it is set,
+else ``mcmc_dynamics_tpu_torch/_build/`` (a directory ``.gitignore`` lists).
+It is written under a temporary name and renamed into place, so a killed or
+concurrent build never leaves a truncated library where a later load would
+find it.  As in the JAX package, every entry point returns None (or False)
+when no compiler or library is available, or the build directory cannot be
+made or is refused, and its callers then take their NumPy paths, which give
+the same answers.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import hashlib
 import logging
 import os
 import pathlib
+import stat
 import subprocess
 from typing import Optional
 
@@ -27,25 +30,62 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["load_library", "native_available", "read_csv", "cache_write",
-           "cache_read", "radial_bins"]
+__all__ = ["CACHE_VARIABLE", "cache_root", "load_library", "native_available",
+           "read_csv", "cache_write", "cache_read", "radial_bins"]
 
 _SOURCE = pathlib.Path(__file__).resolve().parents[1] / "native" / "mcmcd_native.cpp"
 _BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 _FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+# the directory the port's libraries (this one and the CUDA kernels) build in
+CACHE_VARIABLE = "MCMCD_NATIVE_CACHE"
+
+
+def cache_root(default: pathlib.Path) -> pathlib.Path:
+    """The directory the port's compiled libraries live in.
+
+    ``$MCMCD_NATIVE_CACHE`` when it is set, made with mode 0700, and refused
+    (``RuntimeError``), as the JAX package refuses it, when it is a symlink,
+    owned by another user, or group- or world-writable: a library another
+    user could plant there would be loaded into this process.  Else
+    ``default``, inside the package.  ``OSError`` when the directory cannot
+    be made."""
+    base = os.environ.get(CACHE_VARIABLE)
+    if not base:
+        default.mkdir(parents=True, exist_ok=True)
+        return default
+    path = pathlib.Path(base)
+    path.mkdir(parents=True, exist_ok=True, mode=0o700)
+    # lstat: a symlink to a directory that passes the checks is refused too
+    st = os.lstat(path)
+    if stat.S_ISLNK(st.st_mode):
+        raise RuntimeError(f"{CACHE_VARIABLE} directory {path} is a symlink; "
+                           "refusing to load libraries through it.")
+    if hasattr(os, "getuid") and st.st_uid != os.getuid():
+        raise RuntimeError(f"{CACHE_VARIABLE} directory {path} is owned by uid "
+                           f"{st.st_uid}, not this user; refusing to load "
+                           "libraries from it.")
+    if st.st_mode & 0o022:
+        raise RuntimeError(f"{CACHE_VARIABLE} directory {path} is group- or "
+                           "world-writable; refusing to load libraries from it.")
+    return path
 
 
 @functools.cache
 def load_library() -> Optional[ctypes.CDLL]:
     """Compile (once per source digest) and load the library; None when the
-    source, the compiler or the load is unavailable."""
+    source, the build directory, the compiler or the load is unavailable."""
     if not _SOURCE.exists():
         return None
     digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_FLAGS).encode())
-    build_dir = _BUILD_ROOT / f"native-{digest.hexdigest()[:16]}"
+    try:
+        build_dir = cache_root(_BUILD_ROOT) / f"native-{digest.hexdigest()[:16]}"
+        build_dir.mkdir(exist_ok=True, mode=0o700)
+    except (OSError, RuntimeError) as err:
+        logger.warning("Native library build directory unavailable (%s); using "
+                       "NumPy paths.", err)
+        return None
     so_path = build_dir / "libmcmcd_native.so"
     if not so_path.exists():
-        build_dir.mkdir(parents=True, exist_ok=True)
         tmp_path = build_dir / f".libmcmcd_native.{os.getpid()}.tmp.so"
         cmd = ["g++", *_FLAGS, str(_SOURCE), "-o", str(tmp_path)]
         try:

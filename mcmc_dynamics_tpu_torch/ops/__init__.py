@@ -2,9 +2,12 @@
 and the plain-torch ConstantFit sufficient-statistics tier.
 
 Importing this package builds nothing: a kernel is compiled (``_build``) the
-first time a CUDA tensor reaches its wrapper.
+first time a CUDA tensor reaches its wrapper.  :func:`use_kernel` (``dispatch``)
+decides, as a model tier is built, whether it binds the kernel or the plain
+version.
 """
 
+from .dispatch import use_kernel
 from .background_kernel import (BACKGROUND_LSE, background_logsumexp,
                                 background_logsumexp_reference)
 from .lnlike_kernels import (CONSTANT_GB, CONSTANT_MIXTURE, DOUBLE_MODEL,
@@ -60,4 +63,4 @@ __all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE
            "model_tensor_lnlike", "model_sufficient_lnlike",
            "model_sufficient_lnlike_mma",
            "constant_gb_v2_lnlike_batched", "constant_gb_v2_lnlike_reference",
-           "model_gb_v2_lnlike_batched", "model_gb_v2_lnlike_reference"]
+           "model_gb_v2_lnlike_batched", "model_gb_v2_lnlike_reference", "use_kernel"]

@@ -4,9 +4,11 @@ Every ``.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` process for
 Hopper (``sm_90a``), all started together, and the objects are linked into ONE
 shared library with a plain C interface, loaded with ``ctypes``.  No PyTorch
 header is included, so a build takes seconds.  The library lands in
-``_build/<hash of the sources, headers and flags>/`` inside this package (a
-directory that ``.gitignore`` lists), so an edited source rebuilds and an
-unchanged one is loaded as it is.
+``<root>/<hash of the sources, headers and flags>/``, the root being
+``$MCMCD_NATIVE_CACHE`` when it is set (made 0700, and refused as the native
+library's is: ``native.cache_root``) and ``_build/`` inside this package (a
+directory that ``.gitignore`` lists) otherwise, so an edited source rebuilds
+and an unchanged one is loaded as it is.
 
 A kernel is reached through a :class:`Kernel`: it calls the C launcher on the
 caller's stream, raises on a non-zero CUDA error code, and counts its
@@ -25,7 +27,9 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["Kernel", "BuildError", "build_library", "find_nvcc"]
+from ..native import CACHE_VARIABLE, cache_root
+
+__all__ = ["Kernel", "BuildError", "build_library", "build_root", "find_nvcc"]
 
 _PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 _CSRC_DIR = _PKG_DIR / "csrc"
@@ -36,7 +40,19 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 class BuildError(RuntimeError):
-    """nvcc is missing or refused a source; the message carries its stderr."""
+    """nvcc is missing or refused a source (the message carries its stderr),
+    or the build directory cannot be made or is refused."""
+
+
+def build_root() -> pathlib.Path:
+    """The directory the kernel library is built under (see the module's
+    docstring); :class:`BuildError`, naming the variable, when it cannot be
+    made or is refused.  The kernels have no plain fallback to give way to."""
+    try:
+        return cache_root(_BUILD_ROOT)
+    except (OSError, RuntimeError) as err:
+        raise BuildError(f"kernel build directory unavailable ({err}); set "
+                         f"{CACHE_VARIABLE} to a private writable directory") from err
 
 
 def find_nvcc() -> str:
@@ -73,14 +89,18 @@ def build_library() -> BuildInfo:
     for src in sorted(_CSRC_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out_dir = _BUILD_ROOT / digest.hexdigest()[:16]
+    out_dir = build_root() / digest.hexdigest()[:16]
     lib = out_dir / "libmcmc_kernels.so"
     log_file = out_dir / "nvcc.log"
     if lib.exists():
         log = log_file.read_text() if log_file.exists() else ""
         return BuildInfo(lib, 0.0, log)
 
-    out_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        out_dir.mkdir(exist_ok=True, mode=0o700)
+    except OSError as err:
+        raise BuildError(f"cannot make {out_dir} ({err}); set {CACHE_VARIABLE} "
+                         "to a private writable directory") from err
     nvcc = find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:

@@ -69,7 +69,7 @@ def _star_slice(runner, mesh: Mesh, sp_axis: str) -> Dict[str, torch.Tensor]:
     the slice, so checkpoint chunks do not rebuild it."""
     _ = runner.compiled   # refresh the parameter fingerprint
     n_sp, c = mesh.shape[sp_axis], mesh.coordinate(sp_axis)
-    key = (runner._compiled_fp, runner.lnprob_cache_salt(), n_sp, c)
+    key = (runner._compiled_fp, runner.program_cache_salt(), n_sp, c)
     cached = getattr(runner, "_sharded_data_cache", None)
     if cached is None or cached[0] != key:
         data = pad_star_axis(runner.sharded_star_data(), n_sp)

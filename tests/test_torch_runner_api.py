@@ -174,3 +174,127 @@ def test_profiling_on_the_cpu(tmp_path):
         tfit(n_walkers=8, n_steps=2, prefix=None)
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
     assert len(prof.key_averages()) > 0
+
+
+# ------------------------------------------------------------------ documented API
+def _api_pair(model):
+    """ModelFit or ConstantFitGB (fixed centre) in both packages on one
+    catalog with a density column, and 12 walkers inside the priors, with
+    walker 0 moved out (sigma_max < 0)."""
+    import mcmc_dynamics_tpu.models as jmodels
+    from mcmc_dynamics_tpu import units as ju
+    from mcmc_dynamics_tpu.utils import DataReader as JaxDataReader
+
+    import mcmc_dynamics_tpu_torch.models as tmodels
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
+
+    cols = dict(_columns(), density=(10.0 ** np.random.default_rng(9).uniform(-1, 2, 120),
+                                     None))
+    if model == "ModelFit":
+        del cols["density"]
+    params = getattr(jmodels, model).default_parameters()
+    params["ra_center"].set(value=RA_C, fixed=True)
+    params["dec_center"].set(value=DEC_C, fixed=True)
+    if "a" in params:
+        for name in ("a", "r_peak"):
+            params[name].set(initials="rng.uniform(20, 80, size=n)")
+    if "f_back" in params:
+        params["f_back"].set(max=5.0, initials="rng.uniform(0.2, 2, size=n)")
+
+    def read(reader, units):
+        return reader({n: (units.Quantity(*c) if c[1] else c[0]) for n, c in cols.items()})
+
+    jfit = getattr(jmodels, model)(read(JaxDataReader, ju), parameters=params.copy(),
+                                   seed=3)
+    tfit = getattr(tmodels, model)(read(DataReader, u),
+                                   parameters=parameters_from_reference(params.copy()),
+                                   seed=3, device="cpu")
+    pos = tfit.get_initials(12)
+    pos[0, tfit.fitted_parameters.index("sigma_max")] = -1.0
+    return jfit, tfit, pos
+
+
+def _axisymmetric_pair():
+    from test_torch_jam_models import axisymmetric_params, build, catalog, draws
+
+    jfit, tfit = build("Axisymmetric", axisymmetric_params(free_mbh=False),
+                       catalog(n=120, seed=15))
+    return jfit, tfit, draws(tfit.fitted_parameters, 8, seed=16)
+
+
+@pytest.mark.parametrize("model", ["ModelFit", "ConstantFitGB", "Axisymmetric"])
+def test_build_lnprob_units_observed_equal_jax(model):
+    """``build_lnprob()`` (the pure one-walker closure), ``units`` and
+    ``observed(name)`` against the JAX package's, float64, rtol 1e-10 on the
+    lnP values, the same -inf where the prior is not finite."""
+    import jax.numpy as jnp
+
+    jfit, tfit, pos = (_axisymmetric_pair() if model == "Axisymmetric"
+                       else _api_pair(model))
+    jfn, tfn = jfit.build_lnprob(), tfit.build_lnprob()
+    want = np.array([float(jfn(jnp.asarray(theta))) for theta in pos])
+    got = np.array([float(tfn(theta)) for theta in pos])
+    fin = np.isfinite(want)
+    assert fin.sum() >= 4 and not fin.all()
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-10)
+    one = tfn(torch.as_tensor(pos[1]))
+    assert one.dim() == 0 and float(one) == got[1]
+    assert float(tfit.lnprob(pos[1])) == got[1]
+    # the batched tier agrees with the one-walker closure
+    batched = tfit.batched_lnprob()(torch.as_tensor(pos)).numpy()
+    np.testing.assert_allclose(batched[fin], got[fin], rtol=1e-10)
+
+    assert list(tfit.units) == list(jfit.units)
+    for name, unit in jfit.units.items():
+        mine = tfit.units[name]
+        assert (mine.name, mine.dims) == (unit.name, unit.dims)
+        assert math.isclose(mine.scale, unit.scale, rel_tol=1e-15)
+    for name in ("v", "verr"):
+        np.testing.assert_allclose(tfit.observed(name).numpy(),
+                                   np.asarray(jfit.observed(name)), rtol=1e-15)
+    assert tfit.observed("v") is tfit._data_arrays["v"]
+
+
+def test_program_cache_salt_invalidates_the_jam_tier():
+    """The JAM models salt the tier caches through ``program_cache_salt``
+    (the JAX package's hook name): a new MGE rebuilds the batched lnprob and
+    the partial tier; an unchanged one keeps both."""
+    from test_torch_jam_models import MGE, jam_mode, mge_pair
+
+    _, tfit, pos = _axisymmetric_pair()
+    with jam_mode("direct"):
+        salt, first = tfit.program_cache_salt(), tfit.batched_lnprob()
+        assert tfit.batched_lnprob() is first
+        tfit.mge_lum, tfit.mge_mass = mge_pair(
+            __import__("mcmc_dynamics_tpu_torch"),
+            mge=dict(MGE, i=[2.0 * x for x in MGE["i"]]))
+        assert tfit.program_cache_salt() != salt
+        assert tfit.batched_lnprob() is not first
+
+
+def test_a_subclass_salt_rebuilds_the_tiers():
+    """A model overriding the documented ``program_cache_salt`` hook gets its
+    batched and partial tiers rebuilt when its salt changes."""
+    import mcmc_dynamics_tpu_torch.models as tmodels
+    from mcmc_dynamics_tpu_torch import DataReader, units as u
+
+    class Salted(tmodels.ModelFit):
+        table_version = 0
+
+        def program_cache_salt(self):
+            return (self.table_version,)
+
+        def build_lnlike_partial_batched(self):
+            return lambda thetas, data: thetas[:, 0]      # a fresh tier per build
+
+    params = tmodels.ModelFit.default_parameters()
+    params["ra_center"].set(value=RA_C, fixed=True)
+    params["dec_center"].set(value=DEC_C, fixed=True)
+    fit = Salted(DataReader({n: u.Quantity(*c) for n, c in _columns().items()}),
+                 parameters=params, seed=3, device="cpu")
+    tier, partial = fit.batched_lnprob(), fit._partial_tier_cached()
+    assert fit.batched_lnprob() is tier and fit._partial_tier_cached() is partial
+    fit.table_version = 1
+    assert fit.batched_lnprob() is not tier
+    assert fit._partial_tier_cached() is not partial
