@@ -28,6 +28,7 @@ from .. import units as u
 from ..expressions import compile_torch
 from ..ops import dispatch
 from ..parameters import CompiledParameters, Parameters
+from ..profiling import count, fit_span, span
 from ..sampler.diagnostics import AutocorrError, autocorr_time
 from ..sampler.hmc import init_hmc, run_hmc
 from ..sampler.stretch import (EnsembleState, init_state, make_generator,
@@ -217,15 +218,16 @@ class Runner:
         extra = self._has_extra_lnprior()
 
         def one(thetas):
-            lp = compiled.lnprior(thetas)
-            values = self.scaled_values(thetas)
-            if extra:
-                lp = lp + self.extra_lnprior_fn(values)
-            p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
-                 for n, v in values.items()}
-            ll = self.lnlike_fn(p, data)
-            return torch.where(torch.isfinite(lp), lp + ll,
-                               torch.full_like(lp, -math.inf))
+            with span("tier.chunk"):
+                lp = compiled.lnprior(thetas)
+                values = self.scaled_values(thetas)
+                if extra:
+                    lp = lp + self.extra_lnprior_fn(values)
+                p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
+                     for n, v in values.items()}
+                ll = self.lnlike_fn(p, data)
+                return torch.where(torch.isfinite(lp), lp + ll,
+                                   torch.full_like(lp, -math.inf))
 
         def batched(thetas):
             return torch.cat([one(t) for t in torch.split(thetas, self.lnprob_chunk)])
@@ -234,8 +236,8 @@ class Runner:
 
     def _with_prior(self, lnlike: Callable) -> Callable:
         """Batched lnprob = lnprior (+ the joint prior, where the model has
-        one) + ``lnlike(thetas)``, -inf wherever the prior is (the likelihood
-        tiers' common wrapper)."""
+        one) + ``lnlike(thetas)`` (in a ``tier.lnlike`` span), -inf wherever
+        the prior is (the likelihood tiers' common wrapper)."""
         lnprior = self.compiled.lnprior
         extra = self._has_extra_lnprior()
 
@@ -243,7 +245,9 @@ class Runner:
             lp = lnprior(thetas)
             if extra:
                 lp = lp + self.extra_lnprior_fn(self.scaled_values(thetas))
-            return torch.where(torch.isfinite(lp), lp + lnlike(thetas),
+            with span("tier.lnlike"):
+                ll = lnlike(thetas)
+            return torch.where(torch.isfinite(lp), lp + ll,
                                torch.full_like(lp, -math.inf))
 
         return batched
@@ -317,6 +321,7 @@ class Runner:
                dispatch.kernels_disabled(), self.program_cache_salt())
         cached = getattr(self, slot)
         if cached is None or cached[0] != key:
+            count("tier.builds")
             cached = (key, build())
             setattr(self, slot, cached)
         return cached[1]
@@ -485,8 +490,9 @@ class Runner:
         end.  ``state=`` (e.g. from :meth:`load_state`) continues a run bit
         for bit.  ``telemetry`` (a
         :class:`~..profiling.SamplerTelemetry`) records each chunk's wall
-        time; ``plot=True`` draws ``{prefix}_chains.png`` (a failed plot is
-        logged, never raised).
+        time, the fetch of its chain to the host included; ``plot=True``
+        draws ``{prefix}_chains.png`` (a failed plot is logged, never
+        raised).
 
         ``mesh=`` (a :class:`~..parallel.Mesh`, with ``dp_axis=`` and
         ``sp_axis=``, default ``"dp"`` and ``"sp"``) runs the same analysis
@@ -513,52 +519,54 @@ class Runner:
             return sampler
         if n_steps <= 0:
             raise ValueError("n_steps must be positive.")
-        lnprob = self.batched_lnprob()
+        with fit_span():
+            lnprob = self.batched_lnprob()
 
-        if state is None:
-            pos = self._validated_initials(pos, n_walkers)
-            gen = make_generator(self.seed if seed is None else seed, self.device)
-            state = init_state(lnprob, self._to_device(pos), gen)
-        else:
-            n_walkers = state.coords.shape[0]
-        if telemetry is not None:
-            telemetry.n_walkers = n_walkers
+            if state is None:
+                pos = self._validated_initials(pos, n_walkers)
+                gen = make_generator(self.seed if seed is None else seed, self.device)
+                state = init_state(lnprob, self._to_device(pos), gen)
+            else:
+                n_walkers = state.coords.shape[0]
+            if telemetry is not None:
+                telemetry.n_walkers = n_walkers
 
-        chain_parts, lnp_parts = [], []
-        chunk = n_out if n_out else n_steps
-        done = 0
-        accepted0 = state.accepted.clone()
-        step0 = state.step
-        while done < n_steps:
-            steps = min(chunk, n_steps - done)
-            with (telemetry.chunk(steps) if telemetry is not None
-                  else contextlib.nullcontext()):
-                result = run_ensemble(lnprob, state, n_steps=steps, a=a, thin=thin,
-                                      move=move)
-                if telemetry is not None:
-                    result.final.log_prob.cpu()    # waits for the device
-            chain_parts.append(result.chain.cpu().numpy())
-            lnp_parts.append(result.log_prob.cpu().numpy())
-            state = result.final
-            done += steps
-            if n_out:
-                logger.info("step %5d  <lnP> = %12.5e", done,
-                            float(lnp_parts[-1][:, -1].mean()))
-                if prefix is not None:
-                    self.save_current_status_arrays(
-                        np.concatenate(chain_parts, axis=1),
-                        np.concatenate(lnp_parts, axis=1), state, prefix=prefix)
+            chain_parts, lnp_parts = [], []
+            chunk = n_out if n_out else n_steps
+            done = 0
+            accepted0 = state.accepted.clone()
+            step0 = state.step
+            while done < n_steps:
+                steps = min(chunk, n_steps - done)
+                # the fetch waits for the device, so it ends the telemetry's chunk
+                with (telemetry.chunk(steps) if telemetry is not None
+                      else contextlib.nullcontext()):
+                    with span("runner.chunk"):
+                        result = run_ensemble(lnprob, state, n_steps=steps, a=a,
+                                              thin=thin, move=move)
+                    with span("runner.fetch"):
+                        chain_parts.append(result.chain.cpu().numpy())
+                        lnp_parts.append(result.log_prob.cpu().numpy())
+                state = result.final
+                done += steps
+                if n_out:
+                    logger.info("step %5d  <lnP> = %12.5e", done,
+                                float(lnp_parts[-1][:, -1].mean()))
+                    if prefix is not None:
+                        self.save_current_status_arrays(
+                            np.concatenate(chain_parts, axis=1),
+                            np.concatenate(lnp_parts, axis=1), state, prefix=prefix)
 
-        n_done = max(state.step - step0, 1)
-        acceptance = ((state.accepted - accepted0).cpu().numpy() / n_done)
-        sampler = SamplerResult(chain=np.concatenate(chain_parts, axis=1),
-                                lnprobability=np.concatenate(lnp_parts, axis=1),
-                                final_state=state, acceptance_fraction=acceptance)
-        if prefix is not None and n_out:
-            self.save_current_status(sampler, prefix=prefix)
-        if plot:
-            self._plot_run(sampler, prefix, true_values)
-        return sampler
+            n_done = max(state.step - step0, 1)
+            acceptance = ((state.accepted - accepted0).cpu().numpy() / n_done)
+            sampler = SamplerResult(chain=np.concatenate(chain_parts, axis=1),
+                                    lnprobability=np.concatenate(lnp_parts, axis=1),
+                                    final_state=state, acceptance_fraction=acceptance)
+            if prefix is not None and n_out:
+                self.save_current_status(sampler, prefix=prefix)
+            if plot:
+                self._plot_run(sampler, prefix, true_values)
+            return sampler
 
     def _plot_run(self, sampler, prefix, true_values):
         """``{prefix}_chains.png`` of a run; a failed plot is logged."""
@@ -896,10 +904,11 @@ class Runner:
         only the primary writes, and every rank waits for the file."""
         from ..parallel.distributed import barrier, is_primary
 
-        if is_primary():
-            np.savez(f"{prefix}_chain.npz", chain=np.asarray(chain),
-                     lnprob=np.asarray(lnprob), **Runner._state_arrays(state))
-        barrier("checkpoint")
+        with span("runner.checkpoint"):
+            if is_primary():
+                np.savez(f"{prefix}_chain.npz", chain=np.asarray(chain),
+                         lnprob=np.asarray(lnprob), **Runner._state_arrays(state))
+            barrier("checkpoint")
 
     @staticmethod
     def save_current_status_shards(blocks, state, prefix: str, chain_shape):

@@ -41,6 +41,7 @@ from .moments import PC_PER_ARCSEC_PER_KPC, jam_los_moments
 from ..base import (Runner, _sin, gaussian_lnlike_terms, masked_sum,
                     mixture_lnlike_terms)
 from ... import units as u
+from ...profiling import span
 from ...utils.coordinates import xy_offset_rad
 from ...utils.mge import MgeReader, stack_mge_grid
 from ...utils.morphology import find_barq_limits
@@ -403,13 +404,14 @@ class Axisymmetric(Runner):
                 return self._grid_lnlike_terms(spec, p, data, floor)
 
         def one(thetas):
-            lp = compiled.lnprior(thetas)
-            p = walker_columns(self.scaled_values(thetas))
-            if extra:
-                lp = lp + self.extra_lnprior_fn(p)
-            ll = masked_sum(terms(p), data)
-            return torch.where(torch.isfinite(lp), lp + ll,
-                               torch.full_like(lp, -math.inf))
+            with span("tier.chunk"):
+                lp = compiled.lnprior(thetas)
+                p = walker_columns(self.scaled_values(thetas))
+                if extra:
+                    lp = lp + self.extra_lnprior_fn(p)
+                ll = masked_sum(terms(p), data)
+                return torch.where(torch.isfinite(lp), lp + ll,
+                                   torch.full_like(lp, -math.inf))
 
         def batched(thetas):
             return torch.cat([one(t) for t in torch.split(thetas, chunk)])

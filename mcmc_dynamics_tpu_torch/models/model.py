@@ -52,6 +52,7 @@ from ..ops.lnlike_kernels import (model_freecenter_lnlike_batched,
                                   model_mixture_lnlike_reference)
 from ..ops.model_sufficient import ModelSufficientStats, model_sufficient_lnlike
 from ..ops.model_tensor import ModelTensorStats, model_tensor_lnlike
+from ..profiling import span
 from ..utils.coordinates import xy_offset_rad
 from .base import (GaussianBackgroundMixin, Runner, density_membership,
                    density_mixture_terms, gaussian_lnlike_terms,
@@ -319,9 +320,10 @@ class ModelFit(Runner):
 
         def batched(thetas):
             lp = lnprior(thetas)
-            ti = thetas * col_scale
-            ok = torch.isfinite(lp) & stats.in_box(ti)
-            ll = model_tensor_lnlike(stats, ti) if kernel else stats.lnlike(ti)
+            with span("tier.lnlike"):
+                ti = thetas * col_scale
+                ok = torch.isfinite(lp) & stats.in_box(ti)
+                ll = model_tensor_lnlike(stats, ti) if kernel else stats.lnlike(ti)
             return torch.where(ok, lp + ll, torch.full_like(lp, -math.inf))
 
         return batched

@@ -11,8 +11,9 @@ directory that ``.gitignore`` lists) otherwise, so an edited source rebuilds
 and an unchanged one is loaded as it is.
 
 A kernel is reached through a :class:`Kernel`: it calls the C launcher on the
-caller's stream, raises on a non-zero CUDA error code, and counts its
-launches, so a run can show which kernels its main path went through.
+caller's stream (in a ``tier.kernel`` span), raises on a non-zero CUDA
+error code, and counts its launches, so a run can show which kernels its
+main path went through.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import tempfile
 import time
 
 from ..native import CACHE_VARIABLE, cache_root
+from ..profiling import span
 
 __all__ = ["Kernel", "BuildError", "build_library", "build_root", "find_nvcc"]
 
@@ -160,7 +162,8 @@ class Kernel:
         return fn
 
     def __call__(self, *args, stream: int) -> None:
-        err = self._fn(*args, stream)
+        with span("tier.kernel"):
+            err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"CUDA launch of {self.symbol} failed with "
                                f"cudaError {err}")

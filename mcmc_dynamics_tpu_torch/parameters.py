@@ -27,6 +27,7 @@ import torch
 
 from . import units as u
 from .expressions import compile_host, compile_torch
+from .profiling import span
 
 __all__ = ["Parameter", "Parameters", "CompiledParameters"]
 
@@ -567,17 +568,18 @@ class CompiledParameters:
 
     def lnprior(self, theta: torch.Tensor) -> torch.Tensor:
         """(W, K) -> (W,): hard bounds give -inf, plus the prior expressions."""
-        inside = torch.all((theta >= self._bounds_lo) & (theta <= self._bounds_hi),
-                           dim=1)
-        values = self.expand(theta)
-        total = torch.zeros(theta.shape[0], dtype=theta.dtype, device=theta.device)
-        for n, fn in self._prior_fns:
-            local = dict(values)
-            local["val"] = values[n]
-            total = total + fn(local)
-        for n, lo, hi in self._derived_bounds:
-            inside = inside & (values[n] >= lo) & (values[n] <= hi)
-        return torch.where(inside, total, torch.full_like(total, -math.inf))
+        with span("tier.lnprior"):
+            inside = torch.all((theta >= self._bounds_lo) & (theta <= self._bounds_hi),
+                               dim=1)
+            values = self.expand(theta)
+            total = torch.zeros(theta.shape[0], dtype=theta.dtype, device=theta.device)
+            for n, fn in self._prior_fns:
+                local = dict(values)
+                local["val"] = values[n]
+                total = total + fn(local)
+            for n, lo, hi in self._derived_bounds:
+                inside = inside & (values[n] >= lo) & (values[n] <= hi)
+            return torch.where(inside, total, torch.full_like(total, -math.inf))
 
     # ------------------------------------------------------------------ host helpers
     def sample_initials(self, n_walkers: int) -> np.ndarray:

@@ -22,6 +22,11 @@ ensembles (the radial bins of ``pipelines.fit_radial_bins``): coords
 (B, W', K) -> (B, W').  A half-step draws its uniforms for all B ensembles
 in one call on the one generator (and, when a DE move is in the spec, its
 normals in a second call), never once per ensemble.
+
+Each step of :func:`run_ensemble` runs in a ``sampler.step`` span
+(:mod:`..profiling`), its draws, proposals and Metropolis updates in
+``sampler.draw``, ``sampler.propose`` and ``sampler.accept`` spans, and each
+lnprob call in a ``tier.lnprob`` span.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from ..profiling import span
 
 __all__ = ["EnsembleState", "EnsembleResult", "init_state", "make_generator",
            "propose_stretch", "propose_de", "propose_snooker", "propose_mixture",
@@ -73,14 +80,17 @@ def make_generator(seed: int, device) -> torch.Generator:
 def init_state(batched_lnprob: Callable, coords: torch.Tensor,
                generator: torch.Generator) -> EnsembleState:
     """Evaluate lnprob at the initial walkers and build the state."""
-    return EnsembleState(
-        coords=coords,
-        log_prob=batched_lnprob(coords),
-        generator=generator,
-        accepted=torch.zeros(coords.shape[:-1], dtype=torch.int32,
-                             device=coords.device),
-        step=0,
-    )
+    with span("sampler.init"):
+        with span("tier.lnprob"):
+            log_prob = batched_lnprob(coords)
+        return EnsembleState(
+            coords=coords,
+            log_prob=log_prob,
+            generator=generator,
+            accepted=torch.zeros(coords.shape[:-1], dtype=torch.int32,
+                                 device=coords.device),
+            step=0,
+        )
 
 
 def _take(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -324,17 +334,20 @@ def half_update(batched_lnprob: Callable, moves, active: torch.Tensor,
     log_prob, accepted).  The single-device step and the walker-sharded loop
     (``parallel/sharded.py``, whose pool is the gathered opposite half) both
     run it, so their proposals cannot drift apart."""
-    return _accept_update(batched_lnprob, active, active_lnp,
-                          *propose_mixture(moves, active, pool, un, eps, a=a))
+    with span("sampler.propose"):
+        proposed = propose_mixture(moves, active, pool, un, eps, a=a)
+    return _accept_update(batched_lnprob, active, active_lnp, *proposed)
 
 
 def _accept_update(batched_lnprob, active, active_lnp, proposals, ln_bias, ln_u):
-    new_lnp = batched_lnprob(proposals)
-    ln_accept = ln_bias + new_lnp - active_lnp
-    # a NaN lnprob never wins
-    accept = (ln_u < ln_accept) & torch.isfinite(new_lnp)
-    coords = torch.where(accept[..., None], proposals, active)
-    lnp = torch.where(accept, new_lnp, active_lnp)
+    with span("tier.lnprob"):
+        new_lnp = batched_lnprob(proposals)
+    with span("sampler.accept"):
+        ln_accept = ln_bias + new_lnp - active_lnp
+        # a NaN lnprob never wins
+        accept = (ln_u < ln_accept) & torch.isfinite(new_lnp)
+        coords = torch.where(accept[..., None], proposals, active)
+        lnp = torch.where(accept, new_lnp, active_lnp)
     return coords, lnp, accept
 
 
@@ -355,8 +368,9 @@ def stretch_step(batched_lnprob: Callable, state: EnsembleState, a: float = 2.0,
     lead = tuple(coords.shape[:-2])
     half = n_walkers // 2
     if draws is None:
-        draws = draw_step(moves, state.generator, n_walkers, ndim, coords.dtype,
-                          coords.device, lead)
+        with span("sampler.draw"):
+            draws = draw_step(moves, state.generator, n_walkers, ndim, coords.dtype,
+                              coords.device, lead)
     draws = [d if isinstance(d, (tuple, list)) else (d, None) for d in draws]
     c0, c1 = coords[..., :half, :], coords[..., half:, :]
     p0, p1 = state.log_prob[..., :half], state.log_prob[..., half:]
@@ -398,10 +412,11 @@ def run_ensemble(batched_lnprob: Callable, initial: EnsembleState, n_steps: int,
                       device=initial.coords.device)
     state = initial
     for s in range(n_steps):
-        state = stretch_step(batched_lnprob, state, a=a, move=moves)
-        if store_chain and (s + 1) % thin == 0:
-            chain[(s + 1) // thin - 1] = state.coords
-            lnp[(s + 1) // thin - 1] = state.log_prob
+        with span("sampler.step"):
+            state = stretch_step(batched_lnprob, state, a=a, move=moves)
+            if store_chain and (s + 1) % thin == 0:
+                chain[(s + 1) // thin - 1] = state.coords
+                lnp[(s + 1) // thin - 1] = state.log_prob
     n_done = max(state.step - initial.step, 1)
     acc = (state.accepted - initial.accepted).to(initial.coords.dtype) / n_done
     return EnsembleResult(chain=chain.movedim(0, -2), log_prob=lnp.movedim(0, -1),
