@@ -94,7 +94,8 @@ calls, and fails (non-zero exit) if any phase does:
     twice the steps the JAX package needs there; goldens after discarding
     twice the largest tau, ``predict_fields`` on a 32 x 32 grid and
     ``profiling.benchmark_lnprob`` at 1024 walkers;
-32. the JAM engine on the card (plain torch, no kernel of its own): on
+32. the JAM engine on the card (the batched tiers' float32 engine is the
+    JAM kernel, ``csrc/jam_moments.cu``; float64 the plain engine): on
     ``bench.py --validate``'s set-ups (Axisymmetric with a free black hole on
     400 stars with a tail at 15-25 sigma, AnalyticalProfiles, a two-population
     ChemoProfiles on 500 stars; 64 seeded walkers), float32 and float64 on
@@ -113,7 +114,17 @@ calls, and fails (non-zero exit) if any phase does:
     delta_v free on a 16384-star self-consistent mock (the recipe's MGE, the
     velocities from the port's float64 engine at a stated truth), 64 walkers
     x 1500 steps on the grid tier; every truth inside its posterior's
-    0.15-99.85 % interval;
+    0.15-99.85 % interval; then kernel 14 (``ops.jam_moments``, the JAM
+    engine) beside the plain float32 engine on the same card tensors, the
+    arguments K2's grid tier hands the engine for one 32-walker chunk (32
+    walkers x 1536 grid points x 32 LOS nodes, the recipe's 4 Gaussians),
+    and the same with the benchmark's JAM cells' 5 Gaussians
+    (``perfbench/configs/jam_axisymmetric_bh.json``) at 32 and 256
+    walkers: each against the float64 plain engine, the kernel
+    within 4x the plain float32 engine's own error (relative to each field's
+    largest value and to its largest in the same walker's half-octave band
+    of radius), bitwise repeatable, timed against the plain engine in the
+    tier's 32-walker chunks and against its bound;
 35. main path L1, the tempered recipe: ``example/omega_cen_tempered.json``
     without its ``parallel`` block (a 4-device mesh) and with
     ``sampling.n_temps`` 4, through ``cli.run.main`` in this process: a
@@ -2434,6 +2445,145 @@ def phase_jam_recovery(device):
                 fit=fit, pos=pos)
 
 
+# kernel 14 (the JAM engine): its rows (the MGE: K2's own or the benchmark's
+# JAM cells', and the walkers), and its error gate against the plain float32
+# engine's
+JAM_CELLS_CONFIG = REPO / "perfbench" / "configs" / "jam_axisymmetric_bh.json"
+JAM_KERNEL_ROWS = (("K2", 32), ("JAM cells", 32), ("JAM cells", 256))
+JAM_KERNEL_ERR_RATIO = 4.0
+
+
+def jam_engine_args(fit, thetas):
+    """The arguments ``fit``'s batched tier hands the kernel engine for
+    ``thetas`` in one engine call (its walker chunk set to their number), by
+    name: the card tensors the tier built."""
+    from mcmc_dynamics_tpu_torch.models.jam import axisymmetric
+
+    seen, real = [], axisymmetric.jam_moments
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    chunk = fit.jam_grid_chunk
+    fit.jam_grid_chunk = thetas.shape[0]
+    axisymmetric.jam_moments = capture
+    try:
+        fit.batched_lnprob()(thetas)
+    finally:
+        axisymmetric.jam_moments = real
+        fit.jam_grid_chunk = chunk
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} kernel engine calls for one chunk")
+    args, kwargs = seen[0]
+    names = ("x", "y", "lum_i", "lum_s", "lum_q", "mass_i", "mass_s", "mass_q")
+    return dict(zip(names, args), **kwargs)
+
+
+def jam_plain_chunked(args, dtype, chunk=32):
+    """The plain engine on ``args`` (converted to ``dtype``) in walker
+    chunks of ``chunk``, as the plain tier calls it: (vz, v2zz, valid)."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.models.jam.moments import jam_los_moments
+
+    a = {k: v.to(dtype) if torch.is_tensor(v) else v for k, v in args.items()}
+    W = max(v.shape[0] for k, v in a.items() if torch.is_tensor(v) and v.dim() == 2
+            and k not in ("x", "y"))
+    parts = []
+    for lo in range(0, W, chunk):
+        sl = {k: (v[lo:lo + chunk] if torch.is_tensor(v) and v.dim() == 2
+                  and v.shape[0] == W else v) for k, v in a.items()}
+        parts.append(jam_los_moments(**sl))
+    return [torch.cat([getattr(q, f) for q in parts]) for f in ("vz", "v2zz", "valid")]
+
+
+def band_err(got, want, x, y):
+    """max |got - want| over (W, N), each relative to the largest |want| of
+    its walker in its half-octave band of projected radius sqrt(x^2 + y^2)."""
+    import torch
+
+    W, N = want.shape
+    r = torch.hypot(x.double(), y.double()).expand(W, N)
+    band = torch.floor(2.0 * torch.log2(r)).long()
+    band = band - band.min()
+    n_band = int(band.max()) + 1
+    key = (torch.arange(W, device=want.device)[:, None] * n_band + band).flatten()
+    a = want.abs().flatten()
+    scale = torch.zeros(W * n_band, dtype=a.dtype, device=a.device).scatter_reduce(
+        0, key, a, "amax")
+    return float(((got - want).abs().flatten() / scale[key]).max())
+
+
+def phase_jam_kernel(device, k2):
+    """Kernel 14 beside the plain float32 engine on K2's engine arguments,
+    a row each of JAM_KERNEL_ROWS (phase 34's second part): the MGE K2's or
+    the benchmark's JAM cells'."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch import ops
+
+    fit, pos = k2["fit"], np.asarray(k2["pos"])
+    cells_mge = json.loads(JAM_CELLS_CONFIG.read_text())["mge"]
+    rng = np.random.default_rng(341)
+    rows = []
+    for label, n_walkers in JAM_KERNEL_ROWS:
+        draw = pos[rng.integers(0, len(pos), n_walkers)]
+        draw = draw * (1.0 + 1e-3 * rng.normal(size=draw.shape))
+        args = jam_engine_args(fit, fit._to_device(draw))
+        if label == "JAM cells":
+            # light and mass: "i", "s", "q" (the mass twin at unit M/L)
+            args.update({name: torch.tensor(cells_mge[name[-1]], dtype=torch.float32,
+                                             device=args["x"].device)
+                         for name in ("lum_i", "lum_s", "lum_q", "mass_i", "mass_s",
+                                      "mass_q")})
+        want = jam_plain_chunked(args, torch.float64)
+        plain = jam_plain_chunked(args, torch.float32)
+        got = ops.jam_moments(**args)
+        again = ops.jam_moments(**args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.valid, plain[2]) and torch.equal(want[2], plain[2])):
+            raise AssertionError("jam_moments: validity flags differ from the plain "
+                                 "engine's")
+        ok = want[2]
+        errs = {}
+        for k, name in enumerate(("vz", "v2zz")):
+            if not torch.equal(getattr(got, name).view(torch.int32),
+                               getattr(again, name).view(torch.int32)):
+                raise AssertionError(f"jam_moments: {name} not bitwise repeatable")
+            g, q, w = getattr(got, name)[ok].double(), plain[k][ok].double(), want[k][ok]
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"jam_moments: {name} not finite")
+            scale = w.abs().max()
+            e = dict(abs=float((g - w).abs().max()),
+                     field=float((g - w).abs().max() / scale),
+                     field_plain=float((q - w).abs().max() / scale),
+                     band=band_err(g, w, args["x"], args["y"]),
+                     band_plain=band_err(q, w, args["x"], args["y"]))
+            for m in ("field", "band"):
+                if e[m] > JAM_KERNEL_ERR_RATIO * e[m + "_plain"]:
+                    raise AssertionError(f"jam_moments {n_walkers} walkers: {name} "
+                                         f"error {e[m]:.4g} ({m}), plain float32 "
+                                         f"{e[m + '_plain']:.4g}")
+            errs[name] = e
+        ms = cuda_ms(lambda: ops.jam_moments(**args), reps=20)
+        plain_ms = cuda_ms(lambda: jam_plain_chunked(args, torch.float32), reps=5)
+        n_pos = args["x"].shape[-1]
+        n_lum, n_mass = args["lum_i"].shape[-1], args["mass_i"].shape[-1]
+        T, P = n_mass * args["n_u"], n_pos * args["n_zeta"]
+        # perfbench/configs/jam_axisymmetric_bh.py:work's engine terms: the pair
+        # table's exps and 4 operations a pair, its contraction against 2L + 1
+        # rows, the tracer and black-hole terms; bytes: the moments written
+        flops = n_walkers * (4 * T * P + 2 * (2 * n_lum + 1) * T * P + 40 * n_lum * P)
+        sfu = n_walkers * (T * P + 4 * n_lum * P)
+        b_ms, b_by = bound_ms(4 * 2 * n_walkers * n_pos, flops, sfu)
+        rows.append(dict(mge=label, W=n_walkers, N=n_pos, n_zeta=args["n_zeta"], n_u=args["n_u"],
+                         L=n_lum, M=n_mass, errors=errs,
+                         max_abs_err=max(e["abs"] for e in errs.values()), ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    return dict(rows=rows)
+
+
 # ----------------------------------------------------------------------------- main
 # ----------------------------------------------------------------------------- samplers
 # phase 35, path L1: example/omega_cen_tempered.json through cli.run in this
@@ -3139,7 +3289,8 @@ def phase_mesh_four(device, path_a_chain, tmp, profiling=False):
         m1[label] = entry
     m2 = {"backend": ranks[0]["m2"]["backend"]}
     for path, kernel, *_ in M2_CASES:
-        expect = set() if kernel is None else {kernel.replace("_lnb", "")}
+        # K2's grid partial binds the JAM kernel engine
+        expect = {"jam_moments"} if path == "K2" else {kernel.replace("_lnb", "")}
         if path == "F2":
             expect.add("background_lse")         # SingleStars at construction
         entry = dict(ranks[0]["m2"][path])
@@ -3734,7 +3885,7 @@ def main(argv=None) -> int:
           f"benchmark_lnprob {json.dumps(path_j['bench'])} | launches "
           f"{path_j['launches']}")
 
-    jam = drive("JAM engine", lambda: phase_jam_engine(device), set())
+    jam = drive("JAM engine", lambda: phase_jam_engine(device), {"jam_moments"})
     for kind in JAM_KINDS:
         c = jam[kind]
         print(f"phase 32 JAM engine on the card ({JAM_MODELS[kind]}, validate set-up, "
@@ -3746,7 +3897,7 @@ def main(argv=None) -> int:
     print(f"  JAM engine timing (Axisymmetric, free mbh): "
           f"{json.dumps(jam['timing'])} | bound at 512 walkers, grid tier: "
           f"{json.dumps(jam['bound'])} | launches {jam['launches']}")
-    k1 = drive("K1", lambda: phase_production_recipe(device), set())
+    k1 = drive("K1", lambda: phase_production_recipe(device), {"jam_moments"})
     c = k1["checks"]
     print(f"phase 33 main path K1 (production recipe, cli.run, AnalyticalProfiles, "
           f"{k1['stars']} stars, auto -> grid tier): cli.run {k1['cli_s']:.2f} s "
@@ -3757,7 +3908,9 @@ def main(argv=None) -> int:
           f"grid vs direct {c['grid-direct']:.4g} (spread {c['spread']:.4g}) | "
           f"{K1_STEPS['n_walkers']} walkers: {k1['ms_per_step']:.4f} ms/step, bitwise "
           f"resume ok | launches {k1['launches']}")
-    k2 = drive("K2", lambda: phase_jam_recovery(device), set())
+    k2 = drive("K2", lambda: phase_jam_recovery(device), {"jam_moments"})
+    jam_kernel = drive("jam_moments", lambda: phase_jam_kernel(device, k2),
+                       {"jam_moments"})
     print(f"phase 34 main path K2 (Axisymmetric, grid tier, {k2['stars']}-star mock "
           f"from the recipe's MGE, free mlr/barq/kappa_x/kappa_y/mbh/delta_v): "
           f"{k2['walkers']} walkers x {k2['steps']} steps | {k2['ms_per_step']:.4f} "
@@ -3765,6 +3918,19 @@ def main(argv=None) -> int:
           f"0.15-99.85 % interval {json.dumps(k2['intervals'])} | medians "
           f"{json.dumps({k: round(v, 5) for k, v in k2['medians'].items()})} | "
           f"launches {k2['launches']}")
+    for row in jam_kernel["rows"]:
+        e = row["errors"]
+        print(f"phase 34 kernel 14 jam_moments (K2's engine arguments, MGE {row['mge']}, "
+              f"{row['W']} walkers x {row['N']} grid points x {row['n_zeta']} LOS "
+              f"nodes, n_u {row['n_u']}, L {row['L']}, M {row['M']}): "
+              + " | ".join(f"{n} max |d| {v['abs']:.4g}, of the field's largest "
+                           f"{v['field']:.4g} (plain f32 {v['field_plain']:.4g}), of its "
+                           f"band's {v['band']:.4g} (plain f32 {v['band_plain']:.4g})"
+                           for n, v in e.items())
+              + f" | bitwise repeatable | kernel {row['ms']:.4f} ms | plain f32 (32-walker "
+              f"chunks) {row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+    print(f"  launches {jam_kernel['launches']}")
 
     l1 = drive("L1", lambda: phase_tempered_recipe(device), {"model_lnlike"})
     path_line(35, "L1 (omega_cen_tempered.json without its mesh, n_temps 4, cli.run in "
@@ -3821,7 +3987,7 @@ def main(argv=None) -> int:
                   f"({run['bound_by']})" if "ms" in run else "")
         slice_err = (f"slice vs float64 plain max |d| {run['slice_err']:.4g}, "
                      if "slice_err" in run else "")
-        print(f"phase 39 main path M2 {path} ({kernel or 'JAM grid, plain torch'}, "
+        print(f"phase 39 main path M2 {path} ({kernel or 'JAM grid, jam_moments'}, "
               f"sp {M2_SP}, {m2['backend']}): {run['walkers']} walkers x "
               f"{run['slice_rows']}-row slices | {slice_err}sum of the slices vs the "
               f"full call max |d| {run['sum_err']:.4g} | {run['steps']} sharded steps "
@@ -3931,9 +4097,10 @@ def main(argv=None) -> int:
                              port_reader(columns), ra_c, dec_c, device=device,
                              **BINNED_RUN), BINNED_RUN["n_steps"], [])
 
-    # (name, source, TPU kernel, row at the large shape (16384 walkers; the
-    # KDE 20480 targets), rows at the main paths' shapes: (path, row), path
-    # None for a kernel no model dispatches)
+    # (name, source, TPU kernel (None: the port's own), row at the large shape
+    # (16384 walkers; the KDE 20480 targets; the JAM engine 256 walkers),
+    # rows at the main paths' shapes: (path, row), path None for a kernel no
+    # model dispatches)
     def m2_row(path):
         """Rank 0's star slice of path M2 ``path`` as a kernel row."""
         run = m2[path]
@@ -3955,7 +4122,8 @@ def main(argv=None) -> int:
             ("background_lse", "background_lse.cu", "mcmc_dynamics_tpu/ops/background_kernel.py:89", lse[0], [("E2", lse[0]), ("F2", lse[0])]),
             ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0], [(None, sufficient_mma[1])]),
             ("constant_gb_v2", "constant_gb_v2.cu", "tools/probe_mixture.py:124", gb_v2[0], [(None, gb_v2[1])]),
-            ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0], [(None, model_v2[1])])]
+            ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0], [(None, model_v2[1])]),
+            ("jam_moments", "jam_moments.cu", None, jam_kernel["rows"][2], [("K2", jam_kernel["rows"][0]), ("JAM cells (perfbench)", jam_kernel["rows"][1])])]
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mcmc_dynamics_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -3965,7 +4133,8 @@ def main(argv=None) -> int:
          # no single PyTorch call computes any of these functions: per-pair
          # rsqrt/log/logaddexp reductions, a Chebyshev/Tucker chain, per-bin
          # Chebyshev contractions folded into a quadratic, a log-sum-exp over
-         # a matrix another call would have to build first
+         # a matrix another call would have to build first, the JAM engine's
+         # quadrature of an MGE's pair terms
          "library_ms": None,
          # the same kernel at its main path's shape (``ms`` and ``bound_ms``
          # above are at the large shape)

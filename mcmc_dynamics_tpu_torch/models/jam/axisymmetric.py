@@ -15,7 +15,13 @@ semantics are the JAX package's:
   walker's centre, by an ``argmin`` over the walker batch;
 * catalogs of ``jam_grid_min_stars`` stars and more with a fixed centre take the
   polar-grid tier (:mod:`.grid`); ``MCMC_TPU_JAM=auto|grid|direct`` as in the JAX
-  package.
+  package;
+* the batched tiers (and the grid tier's partial on a star-sharded mesh) bind
+  the engine's CUDA kernel (``ops.jam_moments``) where ``ops.use_kernel``
+  holds, checked once as the tier is built, and the plain engine elsewhere;
+  the differentiable tier, the predictive helpers and a class whose
+  ``_jam_kernel_ok`` is False (ChemoProfiles, which reroutes the moments)
+  keep the plain engine.
 
 The batched lnprob maps (W, K) walkers to (W,) in walker chunks of
 ``jam_grid_chunk`` (grid tier) or ``lnprob_chunk`` (direct tier), the JAX
@@ -41,7 +47,8 @@ from .moments import PC_PER_ARCSEC_PER_KPC, jam_los_moments
 from ..base import (Runner, _sin, gaussian_lnlike_terms, masked_sum,
                     mixture_lnlike_terms)
 from ... import units as u
-from ...profiling import span
+from ...ops.jam_kernel import jam_moments
+from ...profiling import count, span
 from ...utils.coordinates import xy_offset_rad
 from ...utils.mge import MgeReader, stack_mge_grid
 from ...utils.morphology import find_barq_limits
@@ -97,6 +104,11 @@ class Axisymmetric(Runner):
     jam_grid_min_stars = 4096
     # posterior draws per engine call in create_profiles / predict_fields
     predictive_chunk = 16
+    # whether the batched tiers may bind the engine's kernel: every moment of
+    # the likelihood goes through _moments_at.  A subclass that reroutes the
+    # moment->likelihood pipeline sets it False; its overrides of
+    # lnlike_terms, model_moments and _grid_lnlike_terms take ``kernel``
+    _jam_kernel_ok = True
 
     def __init__(self, data, parameters=None, mge_mass: Optional[MgeReader] = None,
                  mge_lum: Optional[MgeReader] = None, mge_files: Optional[dict] = None,
@@ -205,21 +217,25 @@ class Axisymmetric(Runner):
         kappa = (p["kappa_x"] ** 2 + p["kappa_y"] ** 2) ** 0.5
         return p["beta"], kappa, p["mlr"]
 
-    def _moments_at(self, p, x, y):
+    def _moments_at(self, p, x, y, kernel=False):
         """Engine call at model-frame positions: the one funnel for the
-        likelihood's moments, shared by the direct and the grid tier."""
+        likelihood's moments, shared by the direct and the grid tier; the
+        kernel engine with ``kernel``, else the plain one."""
         lum_i, lum_s, lum_q, mass_i, mass_s, mass_q = self._select_mge(p)
         beta, kappa, mscale = self.jam_parameters(p)
-        res = jam_los_moments(x, y, lum_i, lum_s, lum_q, mass_i, mass_s, mass_q,
-                              d=p["d"], beta=beta, kappa=kappa, mscale=mscale,
-                              incl=self._inclination(p["barq"]), mbh=p["mbh"],
-                              rbh=p["rbh"], n_u=self.n_u, n_zeta=self.n_zeta)
+        engine = jam_moments if kernel else jam_los_moments
+        res = engine(x, y, lum_i, lum_s, lum_q, mass_i, mass_s, mass_q,
+                     d=p["d"], beta=beta, kappa=kappa, mscale=mscale,
+                     incl=self._inclination(p["barq"]), mbh=p["mbh"],
+                     rbh=p["rbh"], n_u=self.n_u, n_zeta=self.n_zeta)
+        if not kernel:
+            count("jam.engine_plain")
         return res.vz, res.v2zz, res.valid
 
-    def model_moments(self, p, data):
+    def model_moments(self, p, data, kernel=False):
         """(vz, v2zz, valid) at every star for the walkers' parameters."""
         x, y = self._rotated_coords_arcsec(p, data)
-        return self._moments_at(p, x, y)
+        return self._moments_at(p, x, y, kernel)
 
     def _terms_from_moments(self, p, data, vz, v2zz, valid):
         """Per-star terms from LOS moments: validity per walker (over its own
@@ -235,9 +251,9 @@ class Axisymmetric(Runner):
                                          data["pmember"])
         return torch.where(ok[:, None], terms, torch.full_like(terms, -math.inf))
 
-    def lnlike_terms(self, p, data):
+    def lnlike_terms(self, p, data, kernel=False):
         p = walker_columns(p)
-        return self._terms_from_moments(p, data, *self.model_moments(p, data))
+        return self._terms_from_moments(p, data, *self.model_moments(p, data, kernel))
 
     # ------------------------------------------------------------------ tiers
     def _jam_grid_spec(self):
@@ -306,7 +322,7 @@ class Axisymmetric(Runner):
         """``grid`` or ``direct``: the tier ``build_lnprob_batched`` takes."""
         return "direct" if self._jam_grid_spec() is None else "grid"
 
-    def _grid_lnlike_terms(self, spec, p, data, floor):
+    def _grid_lnlike_terms(self, spec, p, data, floor, kernel=False):
         """Per-star lnlike terms through the polar-grid tier.  Subclasses
         that reroute the moment->likelihood pipeline (ChemoProfiles) override
         this to stay grid-eligible."""
@@ -314,8 +330,14 @@ class Axisymmetric(Runner):
 
         theta0 = _atan2(p["kappa_y"], p["kappa_x"])
         vz, v2zz, valid = jam_grid_moments(
-            spec, lambda gx, gy: self._moments_at(p, gx, gy), theta0, floor=floor)
+            spec, lambda gx, gy: self._moments_at(p, gx, gy, kernel), theta0,
+            floor=floor)
         return self._terms_from_moments(p, data, vz, v2zz, valid)
+
+    def _jam_kernel(self, tier: str) -> bool:
+        """Whether ``tier`` binds the kernel engine: ``_jam_kernel_ok`` and
+        :meth:`_kernel_tier` (logged)."""
+        return self._jam_kernel_ok and self._kernel_tier(tier)
 
     def _grid_floor(self) -> float:
         """Log floor of the grid tier: the smallest measurement variance in
@@ -345,12 +367,14 @@ class Axisymmetric(Runner):
             return None
         floor = self._grid_floor()
         chunk = int(self.jam_grid_chunk)
+        kernel = self._jam_kernel("grid partial")
 
         def one(thetas, local):
             lspec = spec._replace(**{name: local[f"jam_{name}"]
                                      for name in _GRID_STAR_COLUMNS})
             p = walker_columns(self.scaled_values(thetas))
-            return masked_sum(self._grid_lnlike_terms(lspec, p, local, floor), local)
+            return masked_sum(self._grid_lnlike_terms(lspec, p, local, floor, kernel),
+                              local)
 
         def fn(thetas, local):
             return torch.cat([one(t, local) for t in torch.split(thetas, chunk)])
@@ -377,17 +401,21 @@ class Axisymmetric(Runner):
     def build_lnprob_batched(self):
         """(W, K) -> (W,): prior, joint prior and the JAM likelihood on the
         grid or the direct tier, in walker chunks of ``jam_grid_chunk`` or
-        ``lnprob_chunk``."""
-        return self._build_jam_lnprob(self._jam_grid_spec())
+        ``lnprob_chunk``, through the kernel engine where
+        :meth:`_jam_kernel` holds."""
+        spec = self._jam_grid_spec()
+        return self._build_jam_lnprob(
+            spec, self._jam_kernel("direct" if spec is None else "grid"))
 
     def build_lnprob_differentiable(self):
         """The direct tier, which HMC differentiates (the JAX package's
-        per-walker closure evaluates the moments at each star)."""
+        per-walker closure evaluates the moments at each star), on the plain
+        engine: the kernel has no backward."""
         return self._build_jam_lnprob(None)
 
-    def _build_jam_lnprob(self, spec):
+    def _build_jam_lnprob(self, spec, kernel=False):
         """The batched lnprob on the grid tier of ``spec``, or on the direct
-        tier for None."""
+        tier for None; on the kernel engine with ``kernel``."""
         compiled = self.compiled
         data = self.prepare_data(dict(self._data_arrays))
         extra = self._has_extra_lnprior()
@@ -395,13 +423,13 @@ class Axisymmetric(Runner):
             chunk = int(self.lnprob_chunk)
 
             def terms(p):
-                return self.lnlike_terms(p, data)
+                return self.lnlike_terms(p, data, kernel)
         else:
             chunk = int(self.jam_grid_chunk)
             floor = self._grid_floor()
 
             def terms(p):
-                return self._grid_lnlike_terms(spec, p, data, floor)
+                return self._grid_lnlike_terms(spec, p, data, floor, kernel)
 
         def one(thetas):
             with span("tier.chunk"):

@@ -31,6 +31,7 @@ from .moments import jam_los_moments
 from .radial_profiles import AnalyticalProfiles
 from ..base import gaussian_lnlike_terms
 from ...parameters import Parameters
+from ...profiling import count
 from ...utils.mge import MgeReader
 
 logger = logging.getLogger(__name__)
@@ -41,6 +42,9 @@ __all__ = ["ChemoProfiles"]
 class ChemoProfiles(AnalyticalProfiles):
     OBSERVABLES = {"ra": "deg", "dec": "deg", "v": "km/s", "verr": "km/s",
                    "feh": None, "feherr": None}
+    # one engine call a population (_pop_moments): the batched tiers keep the
+    # plain engine, and ``kernel`` is never True here
+    _jam_kernel_ok = False
 
     def __init__(self, data, mge_mass: MgeReader, mge_lum: MgeReader,
                  parameters=None, n_pops: int = 2, **kwargs):
@@ -225,6 +229,7 @@ class ChemoProfiles(AnalyticalProfiles):
                               mscale=self.mass_scale(p),
                               incl=self._inclination(p["barq"]), mbh=p["mbh"],
                               rbh=p["rbh"], n_u=self.n_u, n_zeta=self.n_zeta)
+        count("jam.engine_plain")
         return res.vz, res.v2zz, res.valid
 
     def _lnlike_terms_impl(self, p, data, eval_moments):
@@ -259,13 +264,13 @@ class ChemoProfiles(AnalyticalProfiles):
         terms = peak + torch.log(torch.sum(torch.exp(stacked - peak), dim=0))
         return torch.where(valid[:, None], terms, torch.full_like(terms, -math.inf))
 
-    def lnlike_terms(self, p, data):
+    def lnlike_terms(self, p, data, kernel=False):
         p = walker_columns(p)
         # chemo models fix the morphological frame: no kappa-frame rotation
         x, y = self._sky_offsets_arcsec(p, data)
         return self._lnlike_terms_impl(p, data, lambda at: at(x, y))
 
-    def _grid_lnlike_terms(self, spec, p, data, floor):
+    def _grid_lnlike_terms(self, spec, p, data, floor, kernel=False):
         """Polar-grid tier, one grid solve per population.  Chemo models fix
         the morphological frame (no kappa-frame rotation), so the harmonic
         shift angle is zero."""

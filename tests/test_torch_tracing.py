@@ -131,8 +131,10 @@ def test_counters_match_the_fit(tmp_path):
     fit(pos=pos, prefix=str(tmp_path / "run"), **RUN)
     fit(pos=pos, prefix=None, **RUN)
     diff = {k: v - before[k] for k, v in profiling.counters().items()}
-    # two fit ids, one build (the second fit finds it cached), nothing dropped
-    assert diff == {"runner.fits": 2, "tier.builds": 1, "spans.dropped": 0}
+    # two fit ids, one build (the second fit finds it cached), nothing
+    # dropped, no JAM engine call
+    assert diff == {"runner.fits": 2, "tier.builds": 1, "spans.dropped": 0,
+                    "jam.engine_kernel": 0, "jam.engine_plain": 0}
     assert profiling.counters()["runner.fits"] == before["runner.fits"] + 2
 
 
