@@ -124,7 +124,15 @@ calls, and fails (non-zero exit) if any phase does:
     within 4x the plain float32 engine's own error (relative to each field's
     largest value and to its largest in the same walker's half-octave band
     of radius), bitwise repeatable, timed against the plain engine in the
-    tier's 32-walker chunks and against its bound;
+    tier's 32-walker chunks and against its bound; and kernel 14's
+    population instance on the arguments ChemoProfiles' grid tier hands it
+    for one 32-walker chunk of the benchmark's chemo cell
+    (``perfbench/configs/jam_chemo_3pop.json``: 3 populations x 32 walkers
+    x 1536 grid points x 32 LOS nodes, 15 tagged x 5 mass Gaussians), each
+    population against the float64 plain engine at the same 4x gate,
+    bitwise repeatable, timed against one population's call, the 3
+    populations on the walker axis, the plain engine (a call a population
+    in 32-walker chunks) and its bound;
 35. main path L1, the tempered recipe: ``example/omega_cen_tempered.json``
     without its ``parallel`` block (a 4-device mesh) and with
     ``sampling.n_temps`` 4, through ``cli.run.main`` in this process: a
@@ -2451,15 +2459,21 @@ def phase_jam_recovery(device):
 JAM_CELLS_CONFIG = REPO / "perfbench" / "configs" / "jam_axisymmetric_bh.json"
 JAM_KERNEL_ROWS = (("K2", 32), ("JAM cells", 32), ("JAM cells", 256))
 JAM_KERNEL_ERR_RATIO = 4.0
+# kernel 14's population instance: the benchmark's chemo cell at a 4096-star
+# mock (the grid tier's threshold), one walker chunk of its initials
+CHEMO_CELL = "jam_chemo_3pop.mock1e5_w128"
+CHEMO_ROW = dict(n_stars=4096, n_walkers=32, seed=341)
 
 
-def jam_engine_args(fit, thetas):
-    """The arguments ``fit``'s batched tier hands the kernel engine for
+def jam_engine_args(fit, thetas, module=None):
+    """The arguments ``fit``'s batched tier hands the kernel engine
+    (``module.jam_moments``; Axisymmetric's module where None) for
     ``thetas`` in one engine call (its walker chunk set to their number), by
     name: the card tensors the tier built."""
-    from mcmc_dynamics_tpu_torch.models.jam import axisymmetric
+    if module is None:
+        from mcmc_dynamics_tpu_torch.models.jam import axisymmetric as module
 
-    seen, real = [], axisymmetric.jam_moments
+    seen, real = [], module.jam_moments
 
     def capture(*args, **kwargs):
         seen.append((args, kwargs))
@@ -2467,17 +2481,39 @@ def jam_engine_args(fit, thetas):
 
     chunk = fit.jam_grid_chunk
     fit.jam_grid_chunk = thetas.shape[0]
-    axisymmetric.jam_moments = capture
+    module.jam_moments = capture
     try:
         fit.batched_lnprob()(thetas)
     finally:
-        axisymmetric.jam_moments = real
+        module.jam_moments = real
         fit.jam_grid_chunk = chunk
     if len(seen) != 1:
         raise AssertionError(f"{len(seen)} kernel engine calls for one chunk")
     args, kwargs = seen[0]
     names = ("x", "y", "lum_i", "lum_s", "lum_q", "mass_i", "mass_s", "mass_q")
     return dict(zip(names, args), **kwargs)
+
+
+def chemo_engine_args(device):
+    """The arguments ChemoProfiles' grid tier hands the kernel engine for one
+    walker chunk of the benchmark's chemo cell (its tagged MGE, orders and
+    grid; ``CHEMO_ROW``'s mock and walkers), by name: ``lum_i`` and
+    ``kappa`` (n_pops, W, L), the rest as for one population."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.models.jam import chemo
+
+    sys.path.insert(0, str(REPO))
+    from perfbench import harness
+
+    cell = harness.Cell(CHEMO_CELL, overrides={"catalog": {"n_stars": CHEMO_ROW["n_stars"]}})
+    catalog = cell.maker.make(cell.spec["catalog"], CHEMO_ROW["seed"], cell.config, device)
+    fit = cell.builder.build(cell.config, catalog, device, CHEMO_ROW["seed"],
+                             dtype=torch.float32)
+    if fit.lnprob_tier() != "grid":
+        raise AssertionError(f"chemo row: the {fit.lnprob_tier()} tier, not the grid")
+    thetas = cell.initials(CHEMO_ROW["seed"], 0)[0][:CHEMO_ROW["n_walkers"]]
+    return jam_engine_args(fit, fit._to_device(thetas), module=chemo)
 
 
 def jam_plain_chunked(args, dtype, chunk=32):
@@ -2581,7 +2617,84 @@ def phase_jam_kernel(device, k2):
                          L=n_lum, M=n_mass, errors=errs,
                          max_abs_err=max(e["abs"] for e in errs.values()), ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-    return dict(rows=rows)
+    return dict(rows=rows, chemo=jam_population_row(device))
+
+
+def jam_population_row(device):
+    """Kernel 14's population instance on ChemoProfiles' engine arguments
+    (``chemo_engine_args``): each population against its own float64 plain
+    call, within JAM_KERNEL_ERR_RATIO of the plain float32 engine's error
+    (field and band); two calls the same bits; the device ms of the call,
+    of population 0's call alone (the one-population instance), of the 3
+    populations on the walker axis and of the plain engine (one call a
+    population in 32-walker chunks, as the plain tier runs it); the bound
+    from the operations ``configs/jam_chemo_3pop.py:engine_work`` counts."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch import ops
+
+    args = chemo_engine_args(device)
+    n_pops, n_walkers, n_lum = args["lum_i"].shape
+    got = ops.jam_moments(**args)
+    again = ops.jam_moments(**args)
+    torch.cuda.synchronize()
+    if not torch.equal(got.valid, again.valid):
+        raise AssertionError("jam_moments (populations): validity flags not repeatable")
+    for name in ("vz", "v2zz"):
+        if not torch.equal(getattr(got, name).view(torch.int32),
+                           getattr(again, name).view(torch.int32)):
+            raise AssertionError(f"jam_moments (populations): {name} not bitwise "
+                                 "repeatable")
+
+    def population(p):
+        return dict(args, lum_i=args["lum_i"][p], kappa=args["kappa"][p])
+
+    errs = {}
+    for p in range(n_pops):
+        one = population(p)
+        want = jam_plain_chunked(one, torch.float64)
+        plain = jam_plain_chunked(one, torch.float32)
+        if not (torch.equal(got.valid[p], plain[2]) and torch.equal(want[2], plain[2])):
+            raise AssertionError(f"jam_moments population {p}: validity flags differ "
+                                 "from the plain engine's")
+        ok = want[2]
+        for k, name in enumerate(("vz", "v2zz")):
+            g, q, w = getattr(got, name)[p][ok].double(), plain[k][ok].double(), want[k][ok]
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"jam_moments population {p}: {name} not finite")
+            scale = w.abs().max()
+            e = dict(abs=float((g - w).abs().max()),
+                     field=float((g - w).abs().max() / scale),
+                     field_plain=float((q - w).abs().max() / scale),
+                     band=band_err(g, w, args["x"], args["y"]),
+                     band_plain=band_err(q, w, args["x"], args["y"]))
+            for m in ("field", "band"):
+                if e[m] > JAM_KERNEL_ERR_RATIO * e[m + "_plain"]:
+                    raise AssertionError(f"jam_moments population {p}: {name} error "
+                                         f"{e[m]:.4g} ({m}), plain float32 "
+                                         f"{e[m + '_plain']:.4g}")
+            errs[f"{name} {p}"] = e
+    one = population(0)
+    stacked = {k: (torch.cat(list(v)) if k in ("lum_i", "kappa") else
+                   torch.cat([v] * n_pops) if torch.is_tensor(v) and v.dim() == 2
+                   and v.shape[0] == n_walkers else v) for k, v in args.items()}
+    ms = cuda_ms(lambda: ops.jam_moments(**args), reps=20)
+    one_ms = cuda_ms(lambda: ops.jam_moments(**one), reps=20)
+    stacked_ms = cuda_ms(lambda: ops.jam_moments(**stacked), reps=20)
+    plain_ms = cuda_ms(lambda: [jam_plain_chunked(population(p), torch.float32)
+                                for p in range(n_pops)], reps=5)
+    n_pos, n_mass = args["x"].shape[-1], args["mass_i"].shape[-1]
+    T, P = n_mass * args["n_u"], n_pos * args["n_zeta"]
+    # configs/jam_chemo_3pop.py:engine_work: the pair table and its
+    # contraction once a walker, each population's tracer terms; bytes: the
+    # populations' moments written
+    flops = n_walkers * (4 * T * P + 2 * (2 * n_lum + 1) * T * P + n_pops * 40 * n_lum * P)
+    sfu = n_walkers * (T * P + n_pops * 4 * n_lum * P)
+    b_ms, b_by = bound_ms(4 * 2 * n_pops * n_walkers * n_pos, flops, sfu)
+    return dict(mge="chemo cell", P=n_pops, W=n_walkers, N=n_pos, n_zeta=args["n_zeta"],
+                n_u=args["n_u"], L=n_lum, M=n_mass, errors=errs,
+                max_abs_err=max(e["abs"] for e in errs.values()), ms=ms, one_ms=one_ms,
+                stacked_ms=stacked_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 # ----------------------------------------------------------------------------- main
@@ -3930,6 +4043,19 @@ def main(argv=None) -> int:
               + f" | bitwise repeatable | kernel {row['ms']:.4f} ms | plain f32 (32-walker "
               f"chunks) {row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})")
+    row = jam_kernel["chemo"]
+    print(f"phase 34 kernel 14 jam_moments, population axis (ChemoProfiles' engine "
+          f"arguments, the chemo cell's MGE, {row['P']} populations x {row['W']} walkers x "
+          f"{row['N']} grid points x {row['n_zeta']} LOS nodes, n_u {row['n_u']}, L "
+          f"{row['L']}, M {row['M']}): "
+          + " | ".join(f"{n} field {v['field']:.4g} (plain f32 {v['field_plain']:.4g}), "
+                       f"band {v['band']:.4g} (plain f32 {v['band_plain']:.4g})"
+                       for n, v in row["errors"].items())
+          + f" | bitwise repeatable | kernel {row['ms']:.4f} ms | one population "
+          f"{row['one_ms']:.4f} ms ({row['ms'] / row['one_ms']:.3f}x) | {row['P']} "
+          f"populations on the walker axis {row['stacked_ms']:.4f} ms | plain f32 (a call "
+          f"a population, 32-walker chunks) {row['plain_ms']:.4f} ms | bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     print(f"  launches {jam_kernel['launches']}")
 
     l1 = drive("L1", lambda: phase_tempered_recipe(device), {"model_lnlike"})
@@ -4123,7 +4249,7 @@ def main(argv=None) -> int:
             ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0], [(None, sufficient_mma[1])]),
             ("constant_gb_v2", "constant_gb_v2.cu", "tools/probe_mixture.py:124", gb_v2[0], [(None, gb_v2[1])]),
             ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0], [(None, model_v2[1])]),
-            ("jam_moments", "jam_moments.cu", None, jam_kernel["rows"][2], [("K2", jam_kernel["rows"][0]), ("JAM cells (perfbench)", jam_kernel["rows"][1])])]
+            ("jam_moments", "jam_moments.cu", None, jam_kernel["rows"][2], [("K2", jam_kernel["rows"][0]), ("JAM cells (perfbench)", jam_kernel["rows"][1]), ("chemo cell (perfbench), 3 populations", jam_kernel["chemo"])])]
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mcmc_dynamics_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -52,6 +52,24 @@
 // deprojection floor and clamps, the underflow-proof g_star scaling, the
 // zero-intensity mask, the safe square root and the black hole's clamped x0
 // on each side of its switch.
+//
+// Populations.  A call may carry n_pops tracer populations that share the
+// walker's mass, geometry, inclination and tracer shapes and differ in their
+// tracer intensities and kappa (ChemoProfiles: the tagged MGE weighted by
+// one row of the mixing matrix each).  The pair table's rows depend on the
+// mass and the tracers' widths, flattening and beta alone, so a block builds
+// and contracts them once for all of its populations, and runs the
+// per-component assembly, the LOS sums and the surface brightness once a
+// population.  Every population's LOS map is centred on the ridge of the
+// populations' summed tracer (with one population, its own): the map's centre
+// is a change of variable of the LOS integral, so a population's moments are
+// those of a call of its own where the tracer components share one axis
+// ratio, and another quadrature of the same integral elsewhere (apart in vz
+// by up to ~1e-3 of the field at n_zeta 32: callers with distinct axis
+// ratios make a call a population).  Each thread's running integrands of
+// each population live in shared memory between the tracer groups (one load
+// and one store a group), a one-population call's in registers; either way
+// the order of every sum, and so a one-population call's bits, is the same.
 
 #include <cuda_runtime.h>
 
@@ -87,11 +105,11 @@ constexpr float kX0 = 50.0f;                      // the black hole's switch
 // the argument broadcasts over.
 struct Field {
   const float* ptr;
-  long long row, col;
+  long long row, col, pop;   // strides along walkers, components, populations
   float value;
 
-  __device__ __forceinline__ float at(int w, int j) const {
-    return ptr ? __ldg(ptr + row * w + col * j) : value;
+  __device__ __forceinline__ float at(int w, int j, int p = 0) const {
+    return ptr ? __ldg(ptr + pop * p + row * w + col * j) : value;
   }
 };
 
@@ -105,10 +123,10 @@ struct JamArgs {
   Field f[kFields];
   const float* u_nodes;   // (n_u, 2): Gauss-Legendre nodes on [0, 1], weights
   const float* z_nodes;   // (n_zeta, 2): tan t and w sec^2 t of the LOS map
-  float* vz;              // (W, N)
-  float* v2zz;            // (W, N)
-  unsigned char* valid;   // (W,)
-  int W, N, L, M, n_u, n_zeta, with_bh;
+  float* vz;              // (n_pops, W, N)
+  float* v2zz;            // (n_pops, W, N)
+  unsigned char* valid;   // (n_pops, W)
+  int W, N, L, M, n_u, n_zeta, with_bh, n_pops;
 };
 
 // a walker's scalars
@@ -123,17 +141,23 @@ enum {
 };
 // a mass component's (kMassF floats)
 enum { kQRho, kE2, kSHi, kInvTwoMs2, kMassOk, kMassF };
-// a position's (kPosF floats)
-enum { kXpc, kYpc, kScale, kGStar, kSurf, kNum1, kNum2, kPosF };
+// a position's: kPos0 shared floats, then kPopF a population
+enum { kXpc, kYpc, kScale, kPos0 };
+enum { kGStar, kSurf, kNum1, kNum2, kPopF };
+
+__host__ __device__ constexpr int pos_floats(int n_pops) { return kPos0 + kPopF * n_pops; }
 
 __host__ __device__ constexpr int row_floats(int jb) { return (2 + 2 * jb + 1 + 3) / 4 * 4; }
 
+// L counts the tracer components of every population (n_pops x L)
 __host__ __device__ inline int table_offset(int L, int M) {
   return (L * kLumF + M * kMassF + 3) / 4 * 4;   // the table starts 16-byte aligned
 }
 
-__host__ __device__ inline int shared_floats(int jb, int L, int M, int n_pos) {
-  return table_offset(L, M) + kTile * row_floats(jb) + n_pos * kPosF + 2 * kRedFloats;
+// the per-point sums: (n_pops, 2, kRedFloats) after the positions
+__host__ __device__ inline int shared_floats(int jb, int L, int M, int n_pos, int n_pops) {
+  return table_offset(n_pops * L, M) + kTile * row_floats(jb) + n_pos * pos_floats(n_pops) +
+         2 * n_pops * kRedFloats;
 }
 
 // 2^x on the special-function unit (ftz: a very negative x gives 0)
@@ -198,13 +222,14 @@ __device__ void build_table(const JamArgs& a, const float* lum, const float* mas
 
 // a point's geometry: q = position n_zeta + node within the block's tile
 struct Point {
-  float x_pc, yy, R2, z2, g, wz;
+  float x_pc, yy, R2, z2, wz;
+  int n;                  // its position within the block's tile
 };
 
 __device__ __forceinline__ Point geometry(const JamArgs& a, const Walker& wk,
-                                          const float* pos, int q) {
+                                          const float* pos, int pos_f, int q) {
   const int n = q / a.n_zeta, z = q - n * a.n_zeta;
-  const float* p = pos + n * kPosF;
+  const float* p = pos + n * pos_f;
   const float x_pc = p[kXpc], y_pc = p[kYpc], scale = p[kScale];
   const float zeta = y_pc * wk.tilt + scale * __ldg(a.z_nodes + 2 * z);
   const float yy = y_pc * wk.cosi + zeta * wk.sini;
@@ -214,8 +239,8 @@ __device__ __forceinline__ Point geometry(const JamArgs& a, const Walker& wk,
   pt.yy = yy;
   pt.R2 = x_pc * x_pc + yy * yy;
   pt.z2 = zz * zz;
-  pt.g = p[kGStar];
   pt.wz = scale * __ldg(a.z_nodes + 2 * z + 1);
+  pt.n = n;
   return pt;
 }
 
@@ -248,14 +273,16 @@ __device__ __forceinline__ void contract(const float* __restrict__ tab, int nt,
   }
 }
 
-// one tracer component's contribution to a point's two integrands
+// one tracer component's contribution to a point's two integrands (g: its
+// population's dominant projected exponent at the point's position)
 __device__ __forceinline__ void component(const float* c, const Walker& wk, const Point& pt,
-                                          float sin2, float cos2p, float cosphi, float C,
+                                          float g, float sin2, float cos2p, float cosphi,
+                                          float C,
                                           float c_m15, bool with_bh, float s_sz,
                                           float s_sz_a, float s_fr, float& i1, float& i2) {
   const float R2 = pt.R2;
   // clamped at 0: exact for live components, caps masked zero-intensity ones
-  const float E = __expf(fminf(pt.g - (c[kAlpha] * R2 + c[kAlphaT] * pt.z2), 0.0f));
+  const float E = __expf(fminf(g - (c[kAlpha] * R2 + c[kAlphaT] * pt.z2), 0.0f));
   const float nu0 = c[kNu0];
   const float nuj = nu0 * E;
   const float f = kFourPiG * nu0 * E;
@@ -298,20 +325,42 @@ __device__ __forceinline__ void component(const float* c, const Walker& wk, cons
   i1 += wk.sini * nu_vbar * cosphi;
 }
 
-template <int JB>
+// a thread's running integrands (i1, i2) of population p at its k-th point
+// (slot: the point's place in the per-point sums): in registers where the
+// population count is compiled in as one, else in shared memory between the
+// tracer groups
+template <int kPops>
+struct Integrands {
+  float r1[kPoints], r2[kPoints];
+  float* red;
+  __device__ __forceinline__ float& i1(int p, int k, int slot) {
+    if constexpr (kPops == 1) return r1[k];
+    else return red[(2 * p + 1) * kRedFloats + slot];
+  }
+  __device__ __forceinline__ float& i2(int p, int k, int slot) {
+    if constexpr (kPops == 1) return r2[k];
+    else return red[2 * p * kRedFloats + slot];
+  }
+};
+
+// kPops: the populations, or 0 for a.n_pops (one population is compiled on
+// its own, its loops over the populations folded away and its integrands in
+// registers)
+template <int JB, int kPops>
 __global__ void __launch_bounds__(kThreads, 3)
     jam_moments_kernel(const JamArgs a, int tiles, int n_pos_block) {
   constexpr int kRows = 2 * JB + 1;
   __shared__ Walker wk;
   extern __shared__ float4 smem4[];
-  float* lum = reinterpret_cast<float*>(smem4);
-  float* mass = lum + a.L * kLumF;
-  float* tab = lum + table_offset(a.L, a.M);
+  const int L = a.L, M = a.M, NP = kPops ? kPops : a.n_pops;
+  const int pos_f = pos_floats(NP);
+  float* lum = reinterpret_cast<float*>(smem4);   // (NP, L) tracer components
+  float* mass = lum + NP * L * kLumF;
+  float* tab = lum + table_offset(NP * L, M);
   float* pos = tab + kTile * row_floats(JB);
-  float* red = pos + n_pos_block * kPosF;
+  float* red = pos + n_pos_block * pos_f;         // (NP, 2, kRedFloats)
   const int tid = threadIdx.x;
   const int w = blockIdx.x / tiles, tile = blockIdx.x - w * tiles;
-  const int L = a.L, M = a.M;
 
   // ------------------------------------------------------------ the walker
   if (tid == 0) {
@@ -330,8 +379,11 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
   __syncthreads();
   const float pc = wk.pc;
-  for (int j = tid; j < L; j += kThreads) {
-    const float li = a.f[kLumI].at(w, j), lq = a.f[kLumQ].at(w, j);
+  // each population's copy of the tracer components: their intensities and
+  // kappa are the population's, the rest is the same in every copy
+  for (int jp = tid; jp < NP * L; jp += kThreads) {
+    const int p = jp / L, j = jp - p * L;
+    const float li = a.f[kLumI].at(w, j, p), lq = a.f[kLumQ].at(w, j);
     const float beta = a.f[kBeta].at(w, j);
     const float s = a.f[kLumS].at(w, j) * pc;
     const float q2 = deprojected_q2(lq, wk);
@@ -340,14 +392,14 @@ __global__ void __launch_bounds__(kThreads, 3)
     const float sq = s * qi;
     const float a_bh = sq * sq;
     const float two_a15 = powf(2.0f * a_bh, -1.5f);
-    float* c = lum + j * kLumF;
+    float* c = lum + jp * kLumF;
     c[kLi] = li;
     c[kInvLq2] = 1.0f / (lq * lq);
     c[kAlpha] = 1.0f / (2.0f * s2);
     c[kAlphaT] = 1.0f / (2.0f * s2 * qi2);
     c[kNu0] = li * lq / (s * qi * kSqrt2Pi);
     c[kB] = 1.0f / (1.0f - beta);
-    c[kKap] = a.f[kKappa].at(w, j);
+    c[kKap] = a.f[kKappa].at(w, j, p);
     c[kABh] = a_bh;
     c[kInvTwoA] = 1.0f / (2.0f * a_bh);
     c[kInvS2] = 1.0f / s2;
@@ -381,16 +433,21 @@ __global__ void __launch_bounds__(kThreads, 3)
       ok = ok && c[kLumOk] > 0.0f;
       s_min = fminf(s_min, c[kS]);
       s_max = fmaxf(s_max, c[kS]);
+    }
+    for (int jp = 0; jp < NP * L; ++jp) {
+      const float* c = lum + jp * kLumF;
       sw += c[kLumW];
       swq += c[kLumW] * c[kQi2];
     }
     for (int k = 0; k < M; ++k) ok = ok && mass[k * kMassF + kMassOk] > 0.0f;
-    // the tangent map's centre: the LOS ridge of the luminosity-weighted tracer
+    // the tangent map's centre: the LOS ridge of the luminosity-weighted
+    // tracer, summed over the populations
     const float q2bar = swq / fmaxf(sw, 0.0f);
     wk.tilt = wk.sini * wk.cosi * (1.0f / q2bar - 1.0f) / (wk.sini2 + wk.cos2 / q2bar);
     wk.s_min = s_min;
     wk.s_max = s_max;
-    if (tile == 0) a.valid[w] = ok ? 1 : 0;
+    if (tile == 0)
+      for (int p = 0; p < NP; ++p) a.valid[p * a.W + w] = ok ? 1 : 0;
   }
   __syncthreads();
 
@@ -407,28 +464,32 @@ __global__ void __launch_bounds__(kThreads, 3)
     // scale resolves its cusp and the global structure alike
     const float scale =
         a.with_bh ? sqrtf(fminf(fmaxf(r_sky, 1e-3f), wk.s_max) * clipped) : clipped;
-    // the dominant projected tracer Gaussian's exponent, factored out of the
-    // numerators and the normalisation alike; zero-intensity components may
-    // not set it
-    float g = INFINITY;
-    for (int j = 0; j < L; ++j) {
-      const float* c = lum + j * kLumF;
-      if (c[kLi] > 0.0f) g = fminf(g, (x2 + y2 * c[kInvLq2]) * c[kAlpha]);
-    }
-    if (!isfinite(g)) g = 0.0f;
-    float surf = 0.0f;
-    for (int j = 0; j < L; ++j) {
-      const float* c = lum + j * kLumF;
-      surf += c[kLi] * __expf(fminf(g - (x2 + y2 * c[kInvLq2]) * c[kAlpha], 0.0f));
-    }
-    float* p = pos + n * kPosF;
+    float* p = pos + n * pos_f;
     p[kXpc] = x_pc;
     p[kYpc] = y_pc;
     p[kScale] = scale;
-    p[kGStar] = g;
-    p[kSurf] = fmaxf(surf, FLT_MIN);
-    p[kNum1] = 0.0f;
-    p[kNum2] = 0.0f;
+    for (int pp = 0; pp < NP; ++pp) {
+      const float* lp = lum + pp * L * kLumF;
+      // the population's dominant projected tracer Gaussian's exponent,
+      // factored out of its numerators and its normalisation alike;
+      // zero-intensity components may not set it
+      float g = INFINITY;
+      for (int j = 0; j < L; ++j) {
+        const float* c = lp + j * kLumF;
+        if (c[kLi] > 0.0f) g = fminf(g, (x2 + y2 * c[kInvLq2]) * c[kAlpha]);
+      }
+      if (!isfinite(g)) g = 0.0f;
+      float surf = 0.0f;
+      for (int j = 0; j < L; ++j) {
+        const float* c = lp + j * kLumF;
+        surf += c[kLi] * __expf(fminf(g - (x2 + y2 * c[kInvLq2]) * c[kAlpha], 0.0f));
+      }
+      float* q = p + kPos0 + pp * kPopF;
+      q[kGStar] = g;
+      q[kSurf] = fmaxf(surf, FLT_MIN);
+      q[kNum1] = 0.0f;
+      q[kNum2] = 0.0f;
+    }
   }
 
   // ------------------------------------------------------------ the points
@@ -440,14 +501,21 @@ __global__ void __launch_bounds__(kThreads, 3)
   __syncthreads();
   const int npts = npos * a.n_zeta;
   for (int base = 0; base < npts; base += kBlockPoints) {
-    float R2[kPoints], z2[kPoints], i1[kPoints], i2[kPoints];
+    float R2[kPoints], z2[kPoints];
+    Integrands<kPops> in;
+    in.red = red;
 #pragma unroll
     for (int k = 0; k < kPoints; ++k) {
-      const Point pt = geometry(a, wk, pos, min(base + tid + k * kThreads, npts - 1));
+      const Point pt =
+          geometry(a, wk, pos, pos_f, min(base + tid + k * kThreads, npts - 1));
       R2[k] = pt.R2;
       z2[k] = pt.z2;
-      i1[k] = 0.0f;
-      i2[k] = 0.0f;
+      // the thread's own running integrands of each population
+      const int slot = skew(tid + k * kThreads);
+      for (int p = 0; p < NP; ++p) {
+        in.i1(p, k, slot) = 0.0f;
+        in.i2(p, k, slot) = 0.0f;
+      }
     }
     for (int grp = 0; grp < n_groups; ++grp) {
       float acc[kPoints][kRows];
@@ -463,10 +531,11 @@ __global__ void __launch_bounds__(kThreads, 3)
         }
         contract<JB>(tab, min(kTile, T - t0), R2, z2, acc);
       }
-      // the group's tracer components at each point
+      // the group's tracer components at each point, for each population
 #pragma unroll
       for (int k = 0; k < kPoints; ++k) {
-        const Point pt = geometry(a, wk, pos, min(base + tid + k * kThreads, npts - 1));
+        const Point pt =
+            geometry(a, wk, pos, pos_f, min(base + tid + k * kThreads, npts - 1));
         const float safe = fmaxf(pt.R2, 1e-12f);
         const float inv_r = rsqrtf(safe);
         const float sin2 = pt.yy * pt.yy * (inv_r * inv_r);
@@ -478,12 +547,21 @@ __global__ void __launch_bounds__(kThreads, 3)
           const float r = rsqrtf(C);
           c_m15 = r * r * r;
         }
+        const int slot = skew(tid + k * kThreads);
+        for (int p = 0; p < NP; ++p) {
+          float i1 = in.i1(p, k, slot), i2 = in.i2(p, k, slot);
+          const float g = pos[pt.n * pos_f + kPos0 + p * kPopF + kGStar];
+          const float* lp = lum + p * L * kLumF;
 #pragma unroll
-        for (int jj = 0; jj < JB; ++jj) {
-          const int j = grp * JB + jj;
-          if (j < L)
-            component(lum + j * kLumF, wk, pt, sin2, cos2p, cosphi, C, c_m15, a.with_bh,
-                      acc[k][2 * jj], acc[k][2 * jj + 1], acc[k][2 * JB], i1[k], i2[k]);
+          for (int jj = 0; jj < JB; ++jj) {
+            const int j = grp * JB + jj;
+            if (j < L)
+              component(lp + j * kLumF, wk, pt, g, sin2, cos2p, cosphi, C, c_m15,
+                        a.with_bh, acc[k][2 * jj], acc[k][2 * jj + 1], acc[k][2 * JB], i1,
+                        i2);
+          }
+          in.i1(p, k, slot) = i1;
+          in.i2(p, k, slot) = i2;
         }
       }
     }
@@ -493,9 +571,12 @@ __global__ void __launch_bounds__(kThreads, 3)
     for (int k = 0; k < kPoints; ++k) {
       const int q = base + tid + k * kThreads;
       if (q < npts) {
-        const float wz = geometry(a, wk, pos, q).wz;
-        red[skew(tid + k * kThreads)] = i2[k] * wz;
-        red[kRedFloats + skew(tid + k * kThreads)] = i1[k] * wz;
+        const float wz = geometry(a, wk, pos, pos_f, q).wz;
+        const int slot = skew(tid + k * kThreads);
+        for (int p = 0; p < NP; ++p) {
+          red[2 * p * kRedFloats + slot] = in.i2(p, k, slot) * wz;
+          red[(2 * p + 1) * kRedFloats + slot] = in.i1(p, k, slot) * wz;
+        }
       }
     }
     __syncthreads();
@@ -503,40 +584,47 @@ __global__ void __launch_bounds__(kThreads, 3)
       const int lo = max(n * a.n_zeta, base);
       const int hi = min((n + 1) * a.n_zeta, base + kBlockPoints);
       if (lo < hi) {
-        float* p = pos + n * kPosF;
-        float s1 = p[kNum1], s2 = p[kNum2];
-        for (int q = lo; q < hi; ++q) {
-          s2 += red[skew(q - base)];
-          s1 += red[kRedFloats + skew(q - base)];
+        for (int p = 0; p < NP; ++p) {
+          const float* r2 = red + 2 * p * kRedFloats;
+          const float* r1 = r2 + kRedFloats;
+          float* s = pos + n * pos_f + kPos0 + p * kPopF;
+          float s1 = s[kNum1], s2 = s[kNum2];
+          for (int q = lo; q < hi; ++q) {
+            s2 += r2[skew(q - base)];
+            s1 += r1[skew(q - base)];
+          }
+          s[kNum1] = s1;
+          s[kNum2] = s2;
         }
-        p[kNum1] = s1;
-        p[kNum2] = s2;
       }
     }
     __syncthreads();
   }
   for (int n = tid; n < npos; n += kThreads) {
-    const float* p = pos + n * kPosF;
-    const long long o = static_cast<long long>(w) * a.N + pos0 + n;
-    a.vz[o] = p[kNum1] / p[kSurf];
-    a.v2zz[o] = p[kNum2] / p[kSurf];
+    for (int p = 0; p < NP; ++p) {
+      const float* s = pos + n * pos_f + kPos0 + p * kPopF;
+      const long long o = (static_cast<long long>(p) * a.W + w) * a.N + pos0 + n;
+      a.vz[o] = s[kNum1] / s[kSurf];
+      a.v2zz[o] = s[kNum2] / s[kSurf];
+    }
   }
 }
 
-template <int JB>
+template <int JB, int kPops>
 int launch(const JamArgs& a, cudaStream_t stream) {
   const int n_pos_block = std::max(1, kBlockPoints / a.n_zeta);
   const int tiles = std::max(1, (a.N + n_pos_block - 1) / n_pos_block);
   const long long blocks = static_cast<long long>(a.W) * tiles;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t bytes = sizeof(float) * static_cast<size_t>(shared_floats(JB, a.L, a.M, n_pos_block));
+  const int floats = shared_floats(JB, a.L, a.M, n_pos_block, a.n_pops);
+  const size_t bytes = sizeof(float) * static_cast<size_t>(floats);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        jam_moments_kernel<JB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        jam_moments_kernel<JB, kPops>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  jam_moments_kernel<JB><<<static_cast<int>(blocks), kThreads, bytes, stream>>>(
+  jam_moments_kernel<JB, kPops><<<static_cast<int>(blocks), kThreads, bytes, stream>>>(
       a, tiles, n_pos_block);
   return static_cast<int>(cudaGetLastError());
 }
@@ -548,17 +636,19 @@ extern "C" int jam_moments_args_bytes(void) { return static_cast<int>(sizeof(Jam
 
 extern "C" int jam_moments_launch(const void* args, void* stream) {
   const JamArgs& a = *static_cast<const JamArgs*>(args);
-  if (a.W <= 0 || a.N < 0 || a.L <= 0 || a.M <= 0 || a.n_u <= 0 || a.n_zeta <= 0)
+  if (a.W <= 0 || a.N < 0 || a.L <= 0 || a.M <= 0 || a.n_u <= 0 || a.n_zeta <= 0 ||
+      a.n_pops <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // the fewest groups of at most kMaxGroup tracer components, evened out
   const int groups = (a.L + kMaxGroup - 1) / kMaxGroup;
   const int jb = (a.L + groups - 1) / groups;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool one = a.n_pops == 1;
   switch (jb) {
-    case 1: return launch<1>(a, s);
-    case 2: return launch<2>(a, s);
-    case 3: return launch<3>(a, s);
-    case 4: return launch<4>(a, s);
-    default: return launch<5>(a, s);
+    case 1: return one ? launch<1, 1>(a, s) : launch<1, 0>(a, s);
+    case 2: return one ? launch<2, 1>(a, s) : launch<2, 0>(a, s);
+    case 3: return one ? launch<3, 1>(a, s) : launch<3, 0>(a, s);
+    case 4: return one ? launch<4, 1>(a, s) : launch<4, 0>(a, s);
+    default: return one ? launch<5, 1>(a, s) : launch<5, 0>(a, s);
   }
 }

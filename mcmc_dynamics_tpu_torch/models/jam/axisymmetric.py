@@ -19,9 +19,7 @@ semantics are the JAX package's:
 * the batched tiers (and the grid tier's partial on a star-sharded mesh) bind
   the engine's CUDA kernel (``ops.jam_moments``) where ``ops.use_kernel``
   holds, checked once as the tier is built, and the plain engine elsewhere;
-  the differentiable tier, the predictive helpers and a class whose
-  ``_jam_kernel_ok`` is False (ChemoProfiles, which reroutes the moments)
-  keep the plain engine.
+  the differentiable tier and the predictive helpers keep the plain engine.
 
 The batched lnprob maps (W, K) walkers to (W,) in walker chunks of
 ``jam_grid_chunk`` (grid tier) or ``lnprob_chunk`` (direct tier), the JAX
@@ -47,8 +45,8 @@ from .moments import PC_PER_ARCSEC_PER_KPC, jam_los_moments
 from ..base import (Runner, _sin, gaussian_lnlike_terms, masked_sum,
                     mixture_lnlike_terms)
 from ... import units as u
-from ...ops.jam_kernel import jam_moments
-from ...profiling import count, span
+from ...ops.jam_kernel import jam_moments, jam_moments_plain
+from ...profiling import span
 from ...utils.coordinates import xy_offset_rad
 from ...utils.mge import MgeReader, stack_mge_grid
 from ...utils.morphology import find_barq_limits
@@ -104,11 +102,6 @@ class Axisymmetric(Runner):
     jam_grid_min_stars = 4096
     # posterior draws per engine call in create_profiles / predict_fields
     predictive_chunk = 16
-    # whether the batched tiers may bind the engine's kernel: every moment of
-    # the likelihood goes through _moments_at.  A subclass that reroutes the
-    # moment->likelihood pipeline sets it False; its overrides of
-    # lnlike_terms, model_moments and _grid_lnlike_terms take ``kernel``
-    _jam_kernel_ok = True
 
     def __init__(self, data, parameters=None, mge_mass: Optional[MgeReader] = None,
                  mge_lum: Optional[MgeReader] = None, mge_files: Optional[dict] = None,
@@ -223,13 +216,11 @@ class Axisymmetric(Runner):
         kernel engine with ``kernel``, else the plain one."""
         lum_i, lum_s, lum_q, mass_i, mass_s, mass_q = self._select_mge(p)
         beta, kappa, mscale = self.jam_parameters(p)
-        engine = jam_moments if kernel else jam_los_moments
+        engine = jam_moments if kernel else jam_moments_plain
         res = engine(x, y, lum_i, lum_s, lum_q, mass_i, mass_s, mass_q,
                      d=p["d"], beta=beta, kappa=kappa, mscale=mscale,
                      incl=self._inclination(p["barq"]), mbh=p["mbh"],
                      rbh=p["rbh"], n_u=self.n_u, n_zeta=self.n_zeta)
-        if not kernel:
-            count("jam.engine_plain")
         return res.vz, res.v2zz, res.valid
 
     def model_moments(self, p, data, kernel=False):
@@ -334,11 +325,6 @@ class Axisymmetric(Runner):
             floor=floor)
         return self._terms_from_moments(p, data, vz, v2zz, valid)
 
-    def _jam_kernel(self, tier: str) -> bool:
-        """Whether ``tier`` binds the kernel engine: ``_jam_kernel_ok`` and
-        :meth:`_kernel_tier` (logged)."""
-        return self._jam_kernel_ok and self._kernel_tier(tier)
-
     def _grid_floor(self) -> float:
         """Log floor of the grid tier: the smallest measurement variance in
         the working dtype (below it sigma_model^2 is invisible in verr^2 +
@@ -367,7 +353,7 @@ class Axisymmetric(Runner):
             return None
         floor = self._grid_floor()
         chunk = int(self.jam_grid_chunk)
-        kernel = self._jam_kernel("grid partial")
+        kernel = self._kernel_tier("grid partial")
 
         def one(thetas, local):
             lspec = spec._replace(**{name: local[f"jam_{name}"]
@@ -402,10 +388,10 @@ class Axisymmetric(Runner):
         """(W, K) -> (W,): prior, joint prior and the JAM likelihood on the
         grid or the direct tier, in walker chunks of ``jam_grid_chunk`` or
         ``lnprob_chunk``, through the kernel engine where
-        :meth:`_jam_kernel` holds."""
+        :meth:`_kernel_tier` holds."""
         spec = self._jam_grid_spec()
         return self._build_jam_lnprob(
-            spec, self._jam_kernel("direct" if spec is None else "grid"))
+            spec, self._kernel_tier("direct" if spec is None else "grid"))
 
     def build_lnprob_differentiable(self):
         """The direct tier, which HMC differentiates (the JAX package's

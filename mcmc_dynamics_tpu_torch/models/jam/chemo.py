@@ -13,8 +13,18 @@ The port of ``mcmc_dynamics_tpu/models/jam/chemo.py`` (``ChemoProfiles``):
   populations;
 * an ordering prior that keeps the populations from crossing in [Fe/H].
 
-The populations are a Python loop (``n_pops`` is small and fixed); each
-population's engine call is batched over the walkers.
+The populations are a leading axis of (n_pops, W, ...) tensors: every
+population's tracer intensities and kappa go to the engine at once, the
+polar-grid tier transforms and reconstructs them as n_pops x W walkers, and
+the mixture is assembled on the stacked moments.  The batched tiers bind the
+engine's kernel where ``ops.use_kernel`` holds: one launch a walker chunk for
+every population where the tracer's components share one projected axis
+ratio, one launch a population otherwise (the kernel's population axis
+centres every population's LOS map on the summed tracer's ridge, which is
+each population's own only at one axis ratio; at the tags' own axis ratios
+the two quadratures part by up to ~2e-3 of the vz field at n_zeta 32).  The
+plain engine (elsewhere, and in the predictive helpers) takes one call a
+population.
 """
 
 from __future__ import annotations
@@ -27,11 +37,11 @@ import numpy as np
 import torch
 
 from .axisymmetric import _ARCSEC_PER_RAD, walker_columns
-from .moments import jam_los_moments
 from .radial_profiles import AnalyticalProfiles
 from ..base import gaussian_lnlike_terms
+from ...ops.jam_kernel import jam_moments, jam_moments_plain
 from ...parameters import Parameters
-from ...profiling import count
+from ...profiling import span
 from ...utils.mge import MgeReader
 
 logger = logging.getLogger(__name__)
@@ -42,9 +52,6 @@ __all__ = ["ChemoProfiles"]
 class ChemoProfiles(AnalyticalProfiles):
     OBSERVABLES = {"ra": "deg", "dec": "deg", "v": "km/s", "verr": "km/s",
                    "feh": None, "feherr": None}
-    # one engine call a population (_pop_moments): the batched tiers keep the
-    # plain engine, and ``kernel`` is never True here
-    _jam_kernel_ok = False
 
     def __init__(self, data, mge_mass: MgeReader, mge_lum: MgeReader,
                  parameters=None, n_pops: int = 2, **kwargs):
@@ -78,6 +85,9 @@ class ChemoProfiles(AnalyticalProfiles):
 
         # kappa anchor radii within each population's component slice
         lum_i, lum_s, lum_q = mge_lum.as_arrays()
+        # the kernel's population axis is the plain engine's function only
+        # where every tracer component has one projected axis ratio
+        self._one_axis_ratio = bool(np.all(lum_q == lum_q[0]))
         x_kappa = np.zeros(len(lum_s))
         for p in range(n_pops):
             slc = tags == p
@@ -184,21 +194,34 @@ class ChemoProfiles(AnalyticalProfiles):
         return data
 
     # ------------------------------------------------------------------ pure model
-    def _h_row(self, p, pop):
-        """(W, n_pops) row ``pop`` of the mixing matrix ((1, n_pops) when no
-        entry is sampled)."""
+    def _mixing(self, p):
+        """The mixing matrix, (n_pops, W, n_pops) ((n_pops, 1, n_pops) when no
+        entry is sampled): row ``pop`` of each walker."""
         letters = ascii_lowercase[:self.n_pops]
-        cols = [torch.as_tensor(p[f"h_{pop}{q}"], dtype=self.dtype,
-                                device=self.device).reshape(-1, 1) for q in letters]
-        n = max(c.shape[0] for c in cols)
-        return torch.cat([c.expand(n, 1) for c in cols], dim=-1)
+        h = [[torch.as_tensor(p[f"h_{a}{q}"], dtype=self.dtype,
+                              device=self.device).reshape(-1) for q in letters]
+             for a in letters]
+        n = max(e.shape[0] for row in h for e in row)
+        return torch.stack([torch.stack([e.expand(n) for e in row], dim=-1) for row in h])
 
-    def _population_inputs(self, p, pop):
-        """(tracer intensities, per-component kappa) of one population."""
+    def _per_population(self, p, name):
+        """Parameter ``name`` (a format with the population's letter) of every
+        population, (n_pops, W, 1) ((n_pops, 1, 1) when none is sampled)."""
+        cols = [torch.as_tensor(p[name.format(pop)], dtype=self.dtype,
+                                device=self.device).reshape(-1, 1)
+                for pop in ascii_lowercase[:self.n_pops]]
+        n = max(c.shape[0] for c in cols)
+        return torch.stack([c.expand(n, 1) for c in cols])
+
+    def _population_inputs(self, p):
+        """Every population's tracer intensities and per-component kappa,
+        (n_pops, W, L)."""
         lum_i = self._mge_tensors[0]
-        weights = self._h_row(p, pop) @ self._pop_onehot          # (W, L)
-        r_kappa = 10.0 ** p[f"logr_kappa_{pop}"] * 60.0            # dex(arcmin) -> arcsec
-        kappa = self.kappa_profile(self._x_kappa_t, p[f"kappa_max_{pop}"], r_kappa)
+        weights = self._mixing(p) @ self._pop_onehot                     # (n_pops, W, L)
+        # dex(arcmin) -> arcsec
+        r_kappa = 10.0 ** self._per_population(p, "logr_kappa_{}") * 60.0
+        kappa = self.kappa_profile(self._x_kappa_t,
+                                   self._per_population(p, "kappa_max_{}"), r_kappa)
         return lum_i * weights, kappa
 
     def extra_lnprior_fn(self, p):
@@ -220,64 +243,67 @@ class ChemoProfiles(AnalyticalProfiles):
         return self.mlr_profile(self._x_mlr_t, p["mlr_0"], p["mlr_t"], p["mlr_inf"],
                                 p["r_mlr"])
 
-    def _population_moments(self, p, pop, x, y):
-        """(vz, v2zz, valid) of one population at model-frame positions."""
-        lum_i_pop, kappa = self._population_inputs(p, pop)
+    def _population_moments(self, p, x, y, kernel=False):
+        """(vz, v2zz, valid) of every population at model-frame positions,
+        (n_pops, W, N) and (n_pops, W): with ``kernel``, one kernel launch for
+        all of them (one a population where the tracer's axis ratios differ),
+        else one plain engine call a population."""
+        lum_i, kappa = self._population_inputs(p)
         _, lum_s, lum_q, mass_i, mass_s, mass_q = self._mge_tensors
-        res = jam_los_moments(x, y, lum_i_pop, lum_s, lum_q, mass_i, mass_s, mass_q,
-                              d=p["d"], beta=p["beta"], kappa=kappa,
-                              mscale=self.mass_scale(p),
-                              incl=self._inclination(p["barq"]), mbh=p["mbh"],
-                              rbh=p["rbh"], n_u=self.n_u, n_zeta=self.n_zeta)
-        count("jam.engine_plain")
+
+        def engine(fn, lum, kap):
+            return fn(x, y, lum, lum_s, lum_q, mass_i, mass_s, mass_q, d=p["d"],
+                      beta=p["beta"], kappa=kap, mscale=self.mass_scale(p),
+                      incl=self._inclination(p["barq"]), mbh=p["mbh"], rbh=p["rbh"],
+                      n_u=self.n_u, n_zeta=self.n_zeta)
+
+        if kernel and not self._one_axis_ratio:
+            parts = [engine(jam_moments, lum_i[k], kappa[k]) for k in range(self.n_pops)]
+            return tuple(torch.stack(f) for f in zip(*parts))
+        res = engine(jam_moments if kernel else jam_moments_plain, lum_i, kappa)
         return res.vz, res.v2zz, res.valid
 
-    def _lnlike_terms_impl(self, p, data, eval_moments):
-        """Shared multi-population mixture assembly.  ``eval_moments(at)``
-        maps a per-population engine closure ``at(x, y) -> (vz, v2zz, valid)``
-        to star-position moments, directly or through the polar-grid tier."""
-        letters = ascii_lowercase[:self.n_pops]
-        p_spatial = (data["p_spatial"].T if "p_spatial" in data
-                     else self._p_spatial)                       # (n_pops, N)
-
-        valid = None
-        pop_lnlike = []
-        for pop in letters:
-            vz, v2zz, ok = eval_moments(
-                lambda px, py, pop=pop: self._population_moments(p, pop, px, py))
+    def _mixture_terms(self, p, data, vz, v2zz, valid):
+        """Per-star terms from every population's moments ((n_pops, W, N)):
+        spatial x velocity x [Fe/H], log-sum-exp over the populations; -inf
+        for a walker with any population invalid."""
+        with span("tier.mixture"):
+            p_spatial = (data["p_spatial"].T if "p_spatial" in data
+                         else self._p_spatial)                        # (n_pops, N)
             sigma2 = v2zz - vz * vz
-            ok = (ok & torch.all(sigma2 > 0, dim=-1)
-                  & torch.all(torch.isfinite(v2zz), dim=-1))
-            valid = ok if valid is None else valid & ok
+            ok = torch.all(valid & torch.all(sigma2 > 0, dim=-1)
+                           & torch.all(torch.isfinite(v2zz), dim=-1), dim=0)
             sigma = torch.sqrt(torch.clamp(sigma2, min=1e-12))
-
-            like_spatial = self._h_row(p, pop) @ p_spatial             # (W, N)
-            ln_v = gaussian_lnlike_terms(data["v"], data["verr"],
-                                         vz - p["delta_v"], sigma)
+            like_spatial = self._mixing(p) @ p_spatial                   # (n_pops, W, N)
+            ln_v = gaussian_lnlike_terms(data["v"], data["verr"], vz - p["delta_v"], sigma)
             ln_feh = gaussian_lnlike_terms(data["feh"], data["feherr"],
-                                           p[f"mu_feh_{pop}"], p[f"sigma_feh_{pop}"])
-            pop_lnlike.append(torch.log(torch.clamp(like_spatial, min=1e-300))
-                              + ln_v + ln_feh)
-
-        stacked = torch.stack(torch.broadcast_tensors(*pop_lnlike))    # (n_pops, W, N)
-        peak = torch.amax(stacked, dim=0)
-        terms = peak + torch.log(torch.sum(torch.exp(stacked - peak), dim=0))
-        return torch.where(valid[:, None], terms, torch.full_like(terms, -math.inf))
+                                           self._per_population(p, "mu_feh_{}"),
+                                           self._per_population(p, "sigma_feh_{}"))
+            stacked = torch.log(torch.clamp(like_spatial, min=1e-300)) + ln_v + ln_feh
+            peak = torch.amax(stacked, dim=0)
+            terms = peak + torch.log(torch.sum(torch.exp(stacked - peak), dim=0))
+            return torch.where(ok[:, None], terms, torch.full_like(terms, -math.inf))
 
     def lnlike_terms(self, p, data, kernel=False):
         p = walker_columns(p)
         # chemo models fix the morphological frame: no kappa-frame rotation
         x, y = self._sky_offsets_arcsec(p, data)
-        return self._lnlike_terms_impl(p, data, lambda at: at(x, y))
+        return self._mixture_terms(p, data, *self._population_moments(p, x, y, kernel))
 
     def _grid_lnlike_terms(self, spec, p, data, floor, kernel=False):
-        """Polar-grid tier, one grid solve per population.  Chemo models fix
-        the morphological frame (no kappa-frame rotation), so the harmonic
-        shift angle is zero."""
+        """Polar-grid tier: the populations solved, transformed and
+        reconstructed as n_pops x W walkers.  Chemo models fix the
+        morphological frame (no kappa-frame rotation), so the harmonic shift
+        angle is zero."""
         from .grid import jam_grid_moments
 
-        return self._lnlike_terms_impl(
-            p, data, lambda at: jam_grid_moments(spec, at, 0.0, floor=floor))
+        def at(gx, gy):
+            return tuple(t.flatten(0, 1) for t in self._population_moments(p, gx, gy,
+                                                                         kernel))
+
+        moments = jam_grid_moments(spec, at, 0.0, floor=floor)
+        return self._mixture_terms(p, data, *(t.unflatten(0, (self.n_pops, -1))
+                                              for t in moments))
 
     # ------------------------------------------------------------------ posterior
     def predict_fields(self, chain, n_burn: int, ra, dec,
@@ -292,17 +318,15 @@ class ChemoProfiles(AnalyticalProfiles):
                  "dec": self._to_device(np.atleast_1d(dec_q.to("rad").value))}
         draws = self._posterior_draws(chain, n_burn, n_samples, seed)
 
-        out = {}
-        for i, pop in enumerate(ascii_lowercase[:self.n_pops]):
-            def forward(p, pop=pop):
-                x, y = self._sky_offsets_arcsec(p, pdata)
-                vz, v2zz, _ = self._population_moments(p, pop, x, y)
-                return (vz - p["delta_v"],
-                        torch.sqrt(torch.clamp(v2zz - vz ** 2, min=0.0)))
+        def forward(p):
+            x, y = self._sky_offsets_arcsec(p, pdata)
+            vz, v2zz, _ = self._population_moments(p, x, y)
+            return (*(vz - p["delta_v"]), *torch.sqrt(torch.clamp(v2zz - vz ** 2, min=0.0)))
 
-            v, s = self._chunked(draws, forward)
-            out[i] = self._predictive_table(ra_q, dec_q, v, s)
-        return out
+        out = self._chunked(draws, forward)
+        n = self.n_pops
+        return {i: self._predictive_table(ra_q, dec_q, out[i], out[n + i])
+                for i in range(n)}
 
     def create_profiles(self, chain, n_burn: int, n_samples: int = 100, radii=None,
                         n_theta: int = 10, prefix=None, filename=None,
@@ -321,14 +345,14 @@ class ChemoProfiles(AnalyticalProfiles):
         xt, yt = self._to_device(x), self._to_device(y)
         draws = self._posterior_draws(chain, n_burn, n_samples, seed)
 
-        profiles = {}
-        for i, pop in enumerate(ascii_lowercase[:self.n_pops]):
-            def forward(p, pop=pop):
-                vz, v2zz, _ = self._population_moments(p, pop, xt, yt)
-                return vz, v2zz
+        def forward(p):
+            vz, v2zz, _ = self._population_moments(p, xt, yt)
+            return (*vz, *v2zz)
 
-            vz, v2zz = self._chunked(draws, forward)
-            table = self._profile_table(radii, x, n_theta, vz, v2zz)
+        out = self._chunked(draws, forward)
+        profiles = {}
+        for i in range(self.n_pops):
+            table = self._profile_table(radii, x, n_theta, out[i], out[self.n_pops + i])
             profiles[i] = table
             if prefix is not None:
                 table.write(f"{prefix}_pop{i}.ecsv", fmt="ascii.ecsv")

@@ -91,7 +91,7 @@ def _safe_sqrt(v):
 
 def jam_los_moments(x, y, lum_i, lum_s, lum_q, mass_i, mass_s, mass_q,
                     d, beta, kappa, mscale, incl, mbh=0.0, rbh=1.0,
-                    n_u: int = 24, n_zeta: int = 32) -> JamMoments:
+                    n_u: int = 24, n_zeta: int = 32, ridge_i=None) -> JamMoments:
     """LOS velocity moments of an axisymmetric JAM model for W walkers.
 
     Parameters (no units; shapes in the module docstring):
@@ -106,6 +106,9 @@ def jam_los_moments(x, y, lum_i, lum_s, lum_q, mass_i, mass_s, mass_q,
       incl           inclination [rad]; pi/2 = edge-on
       mbh, rbh       black-hole mass [Msun] and fiducial width [arcsec]
       n_u, n_zeta    quadrature orders (u in [0,1]; LOS)
+      ridge_i        the intensities of the tracer whose LOS ridge centres the
+                     map (default lum_i): the kernel's population axis centres
+                     every population on the populations' summed tracer
 
     Returns vz [km/s] and v2zz [km^2/s^2] as (W, N) and a (W,) validity flag.
     """
@@ -175,7 +178,8 @@ def jam_los_moments(x, y, lum_i, lum_s, lum_q, mass_i, mass_s, mass_q,
     # the tangent map is centred on the LOS ridge of the total-luminosity-
     # weighted tracer (zeta_c), which sits away from zeta = 0 for flattened
     # components
-    lum_w = lum_i * lum_s ** 2 * lum_q                      # component L_tot
+    ridge = lum_i if ridge_i is None else _component(ridge_i, x)
+    lum_w = ridge * lum_s ** 2 * lum_q                      # component L_tot
     q2bar = (torch.sum(lum_w * lum_qi * lum_qi, dim=-1, keepdim=True)
              / torch.clamp(torch.sum(lum_w, dim=-1, keepdim=True), min=1e-300))
     tilt = (sini * cosi * (1.0 / q2bar - 1.0)

@@ -49,11 +49,12 @@ __all__ = ["SamplerTelemetry", "trace", "benchmark_lnprob", "span", "fit_span",
 # the port's counters, each a host integer: ``runner.fits`` (the last fit's
 # id), ``tier.builds`` (the likelihood tiers ``Runner._tier_cached`` built),
 # ``spans.dropped`` (the spans the latest tracing session did not keep, past
-# _MAX_SPANS), and ``jam.engine_kernel`` and ``jam.engine_plain`` (the JAM
+# _MAX_SPANS), ``jam.engine_kernel`` and ``jam.engine_plain`` (the JAM
 # engine's calls that launched its kernel, and those that ran the plain
-# version)
+# version) and ``jam.populations`` (the tracer populations those calls
+# evaluated: one a plain call, n_pops a kernel call)
 _COUNTERS = ("runner.fits", "tier.builds", "spans.dropped", "jam.engine_kernel",
-             "jam.engine_plain")
+             "jam.engine_plain", "jam.populations")
 # the most spans one tracing session keeps
 _MAX_SPANS = 1 << 18
 

@@ -7,6 +7,15 @@ engine only where ``ops.use_kernel`` holds (forced on the CPU by setting
 ``ops.dispatch.KERNEL_DEVICE``), and the plain one on the CPU, in float64,
 under ``MCMC_TPU_DISABLE_PALLAS=1`` and in ``build_lnprob_differentiable``;
 the ``jam.engine_*`` counters count each engine call by its path.
+ChemoProfiles (the benchmark's ``jam_chemo_3pop`` configuration at a tiny
+size: 3 populations over a 15-Gaussian tagged MGE) binds the kernel engine
+once a walker chunk with every population stacked (once a population
+where the tags have axis ratios of their own), and the plain engine, one
+call a population, elsewhere; the wrapper's population axis on the CPU is
+one plain call a population.  What the kernel's population axis
+approximates, in float64 on the CPU: its LOS map centred on the summed
+tracer against each population's own, the same map at one axis ratio, apart
+by up to ~1e-3 of the vz field at the tags' own.
 
 On the card (marked ``cuda``; this file imports no JAX, so it runs there with
 ``python3 -m pytest --noconftest -m cuda tests/test_torch_jam_kernel.py``):
@@ -23,10 +32,25 @@ decades in radius: an error confined to the outer positions shows there).  The b
 straddles its switch at 50 on every walker: C runs from rbh^2 (6e-4 pc^2) at
 the inner positions' central nodes to ~1e8 pc^2 at the outer LOS nodes.
 Two calls give the same bits, each call is one launch, and the validity flags
-are the plain engine's.
+are the plain engine's.  With a population axis (the chemo configuration's
+15 tracer Gaussians over 5 mass Gaussians, 3 populations): each population
+against its own float64 plain call at the same 4x gate, against a kernel
+call of its own within 4x the plain float32 engine's error (the LOS map's
+centre is the summed tracer's, which moves it by a rounding of the tracers'
+mean axis ratio), a population axis of one bit for bit the two-dimensional
+call, two calls the same bits; at the tags' own axis ratios, each
+population against the plain engine centred alike; the timing of 3
+populations in one call against one population and against 3 stacked on
+the walker axis, and of one population in two-dimensional calls alone (a
+tree without the population axis runs it too); ChemoProfiles' grid tier on
+the card makes one launch a walker chunk (one a population at the tags'
+own axis ratios).
 """
 
+import json
 import math
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -34,7 +58,7 @@ import torch
 
 import mcmc_dynamics_tpu_torch as tpkg
 from mcmc_dynamics_tpu_torch import ops, profiling
-from mcmc_dynamics_tpu_torch.models.jam import axisymmetric
+from mcmc_dynamics_tpu_torch.models.jam import axisymmetric, chemo
 from mcmc_dynamics_tpu_torch.models.jam.moments import jam_los_moments
 from mcmc_dynamics_tpu_torch.ops import dispatch
 
@@ -47,6 +71,10 @@ OMEGA_CEN = dict(i=[2588.2310694730604, 3816.4677317630703, 1884.1234579424201,
                     372.26229615684633, 724.0083142492658],
                  q=[0.83] * 5)
 TINY = dict(n_u=4, n_zeta=4, jam_grid_orders=(8, 4))
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the benchmark's chemo configuration: 3 populations, 15 tagged tracer
+# Gaussians (one axis ratio), omega Cen's 5 mass Gaussians
+CHEMO = json.loads((ROOT / "perfbench/configs/jam_chemo_3pop.json").read_text())
 
 
 # ------------------------------------------------------------------- the CPU
@@ -194,12 +222,190 @@ def test_kernel_predicate_binds_the_kernel_engine(model, tier, monkeypatch, stan
     assert len(stand_in) == (2 if tier == "grid" else 1)
 
 
-def test_chemo_keeps_its_plain_engine():
-    """ChemoProfiles reroutes the moments (one engine call a population): no
-    tier of it binds the kernel engine, whatever the predicate says."""
-    chemo = tpkg.models.ChemoProfiles.__new__(tpkg.models.ChemoProfiles)
-    for tier in ("grid", "direct", "grid partial"):
-        assert not chemo._jam_kernel(tier)
+def _tags_q(tags_q):
+    """The chemo configuration's tracer axis ratios with each tag's own,
+    ``tags_q[tag]``, as a configuration override."""
+    return {"mge_tags": {"q": [tags_q[t] for t in CHEMO["mge_tags"]["pop"]]}}
+
+
+def _chemo(dtype, tier, n_stars=None, tags_q=None):
+    """The benchmark's chemo cell at a tiny size on the CPU: its catalog
+    maker and its builder, 120 stars (the grid tier from 100), tiny
+    orders, jam_grid_chunk and lnprob_chunk 2; ``tags_q``, each spatial
+    tag's own axis ratio (the configuration's one where None)."""
+    sys.path.insert(0, str(ROOT))
+    from perfbench import harness
+
+    config = {"engine": {"n_u": TINY["n_u"], "n_zeta": TINY["n_zeta"],
+                         "grid_orders": list(TINY["jam_grid_orders"]),
+                         "grid_min_stars": 100 if tier == "grid" else 10_000}}
+    if tags_q is not None:
+        config.update(_tags_q(tags_q))
+    cell = harness.Cell("jam_chemo_3pop.mock1e5_w128", overrides={
+        "catalog": {"n_stars": n_stars or 120}, "config": config})
+    catalog = cell.maker.make(cell.spec["catalog"], 3, cell.config, "cpu")
+    fit = cell.builder.build(cell.config, catalog, "cpu", 5, dtype=dtype)
+    fit.jam_grid_chunk = fit.lnprob_chunk = 2
+    assert fit.lnprob_tier() == tier
+    return fit, torch.as_tensor(cell.initials(3, 0)[0][:4], dtype=dtype)
+
+
+@pytest.fixture
+def chemo_stand_in(monkeypatch):
+    """Counts the calls of the kernel engine ChemoProfiles binds (the
+    stand-in runs the real wrapper: on the CPU, one plain call a
+    population)."""
+    calls = []
+    real = chemo.jam_moments
+
+    def counting(*args, **kwargs):
+        calls.append(tuple(args[2].shape))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(chemo, "jam_moments", counting)
+    return calls
+
+
+def _pop_counts():
+    return (*_counts(), profiling.counters()["jam.populations"])
+
+
+def test_chemo_keeps_its_plain_engine(monkeypatch, chemo_stand_in):
+    """ChemoProfiles where ``ops.use_kernel`` fails (the CPU) and in its
+    differentiable tier, on the grid and the direct tier: no kernel-engine
+    call, one plain call a population a walker chunk (two chunks of two
+    walkers here)."""
+    monkeypatch.delenv(SWITCH, raising=False)
+    for tier in ("grid", "direct"):
+        fit, thetas = _chemo(torch.float64, tier)
+        for fn in (fit.batched_lnprob(), fit.build_lnprob_differentiable()):
+            before = _pop_counts()
+            got = fn(thetas)
+            assert got.shape == (4,) and torch.isfinite(got).all()
+            assert chemo_stand_in == []
+            assert _pop_counts() == (before[0], before[1] + 6, before[2] + 6)
+
+
+@pytest.mark.parametrize("tier", ["grid", "direct"])
+def test_chemo_binds_the_kernel_engine(tier, monkeypatch, chemo_stand_in):
+    """With ``ops.use_kernel`` forced true on the CPU, ChemoProfiles' batched
+    tier (and the grid tier's partial) call the kernel engine once a walker
+    chunk with the 3 populations' intensities stacked, (3, W, L); on the CPU
+    the wrapper runs the plain engine a population at a time, so the values
+    are the plain tier's bit for bit."""
+    monkeypatch.delenv(SWITCH, raising=False)
+    monkeypatch.setattr(dispatch, "KERNEL_DEVICE", "cpu")
+    fit, thetas = _chemo(torch.float32, tier)
+    before = _pop_counts()
+    got = fit.batched_lnprob()(thetas)
+    assert chemo_stand_in == [(3, 2, 15)] * 2
+    assert _pop_counts() == (before[0], before[1] + 6, before[2] + 6)
+    if tier == "grid":
+        local = fit.sharded_star_data()
+        local["mask"] = torch.ones(fit.n_data, dtype=fit.dtype)
+        fit._partial_tier_cached()(thetas, local)
+        assert chemo_stand_in == [(3, 2, 15)] * 4
+    monkeypatch.setenv(SWITCH, "1")
+    torch.testing.assert_close(fit.batched_lnprob()(thetas), got, rtol=0, atol=0)
+    assert len(chemo_stand_in) == (4 if tier == "grid" else 2)
+
+
+@pytest.mark.parametrize("tier", ["grid", "direct"])
+def test_chemo_binds_a_launch_a_population_at_distinct_axis_ratios(
+        tier, monkeypatch, chemo_stand_in):
+    """Where the spatial tags have axis ratios of their own (0.85, 0.83,
+    0.8), the kernel's population axis would centre each population's LOS
+    map off its own ridge (``test_shared_ridge_departure``): ChemoProfiles'
+    batched tier then calls the kernel engine once a population, each call
+    two-dimensional, (W, L); the values are the plain tier's bit for bit."""
+    monkeypatch.delenv(SWITCH, raising=False)
+    monkeypatch.setattr(dispatch, "KERNEL_DEVICE", "cpu")
+    fit, thetas = _chemo(torch.float32, tier, tags_q=(0.85, 0.83, 0.8))
+    before = _pop_counts()
+    got = fit.batched_lnprob()(thetas)
+    assert torch.isfinite(got).all()
+    assert chemo_stand_in == [(2, 15)] * 6
+    assert _pop_counts() == (before[0], before[1] + 6, before[2] + 6)
+    monkeypatch.setenv(SWITCH, "1")
+    torch.testing.assert_close(fit.batched_lnprob()(thetas), got, rtol=0, atol=0)
+
+
+# each spatial tag's axis ratio, and the bound on the departure of the LOS
+# map centred on the populations' summed tracer from each population's own
+# (vz and v2zz, of the field's largest value), float64 at the chemo orders
+RIDGE_CASES = {
+    "one axis ratio": ((0.83, 0.83, 0.83), 1e-12),
+    "tags 0.9 / 0.85 / 0.8": ((0.9, 0.85, 0.8), 1e-4),
+    "tags 0.95 / 0.8 / 0.6": ((0.95, 0.8, 0.6), 5e-3),
+}
+
+
+@pytest.mark.parametrize("case", list(RIDGE_CASES))
+def test_shared_ridge_departure(case):
+    """What the kernel's population axis approximates, on the CPU in
+    float64: the plain engine with its LOS map centred on the populations'
+    summed tracer (``ridge_i``, as the kernel centres every population)
+    against each population's own centre, at the chemo orders (n_u 24,
+    n_zeta 32) on a 32 x 4 polar grid, 4 walkers, the chemo tagged MGE with
+    each tag's axis ratio.  One axis ratio: the same map to rounding
+    (measured 3e-16 of the field).  The tags' own: two quadratures of one
+    integral, whose vz parts in some population by more than 10x the float32
+    plain engine's own error (measured up to 3.2e-5 of the field at 0.9 /
+    0.85 / 0.8, 1.2e-3 at 0.95 / 0.8 / 0.6; v2zz under 1e-7), past the card
+    tests' 4x gate: so the kernel's population axis is bound only at one
+    axis ratio, and ChemoProfiles launches a population at a time
+    otherwise."""
+    tags_q, bound = RIDGE_CASES[case]
+    args = _pop_inputs(4, seed=1, tags_q=tags_q)
+    args["x"], args["y"] = _grid_positions(32, 4)
+    orders = dict(n_u=24, n_zeta=32)
+    ridge = torch.as_tensor(args["lum_i"].sum(axis=0))
+    ratios = []
+    for p in range(3):
+        one = _one_population(args, p)
+        a64 = _to(one, torch.float64, "cpu")
+        own = jam_los_moments(**a64, **orders)
+        shared = jam_los_moments(**a64, **orders, ridge_i=ridge)
+        f32 = jam_los_moments(**_to(one, torch.float32, "cpu"), **orders)
+        ok = own.valid
+        assert torch.equal(shared.valid, ok) and int(ok.sum()) == 3
+        for name in ("vz", "v2zz"):
+            w = getattr(own, name)[ok]
+            scale = w.abs().max()
+            departure = float((getattr(shared, name)[ok] - w).abs().max() / scale)
+            err32 = float((getattr(f32, name)[ok].double() - w).abs().max() / scale)
+            assert departure <= bound, (p, name, departure)
+            if name == "vz":
+                ratios.append(departure / err32)
+    if len(set(tags_q)) > 1:
+        assert max(ratios) > 10.0, ratios
+
+
+def test_population_axis_on_the_cpu_is_one_call_a_population():
+    """CPU tensors with a population axis on ``lum_i`` and ``kappa``: the
+    wrapper's moments are the plain engine's of each population, stacked,
+    from one plain call a population; ``kappa`` without the axis is shared."""
+    rng = np.random.default_rng(2)
+    t = torch.as_tensor
+    L, W = 6, 3
+    lum_i = t(OMEGA_CEN["i"][:3] * 2) * t(rng.uniform(0.1, 1.0, (2, W, L)))
+    kw = dict(lum_s=t(OMEGA_CEN["s"][:3] * 2), lum_q=t([0.83] * L),
+              mass_i=t(OMEGA_CEN["i"][:3]), mass_s=t(OMEGA_CEN["s"][:3]),
+              mass_q=t([0.83] * 3), d=5.2, beta=0.0, mscale=t([[2.5], [2.4], [2.6]]),
+              incl=t([[1.0], [1.1], [0.05]]), mbh=t([[3e4], [1e5], [1e4]]), rbh=1.0,
+              n_u=4, n_zeta=4)
+    x, y = t(rng.normal(0, 200, 5)), t(rng.normal(0, 200, 5))
+    for kappa in (t(rng.uniform(0.1, 0.5, (2, W, L))), t([[0.3], [0.2], [0.1]])):
+        before = _pop_counts()
+        got = ops.jam_moments(x, y, lum_i=lum_i, kappa=kappa, **kw)
+        assert _pop_counts() == (before[0], before[1] + 2, before[2] + 2)
+        for p in range(2):
+            want = jam_los_moments(x, y, lum_i=lum_i[p],
+                                   kappa=kappa[p] if kappa.dim() == 3 else kappa, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g[p], w)
+        assert got.vz.shape == (2, W, 5) and got.valid.shape == (2, W)
+        assert not bool(got.valid[0, 2]) and not bool(got.valid[1, 2])
 
 
 # ------------------------------------------------------------------ the card
@@ -334,3 +540,240 @@ def test_kernel_against_the_plain_engine(case, cuda_device):
         assert band_kernel <= 4.0 * band_plain, (name, band_kernel, band_plain)
         assert torch.equal(getattr(got, name).view(torch.int32),
                            getattr(again, name).view(torch.int32))
+
+
+def _pop_inputs(W, n_pops=3, bh=False, seed=0, tags_q=None):
+    """The engine's arguments as numpy for W walkers and ``n_pops``
+    populations of the chemo configuration's tagged MGE: each population
+    the tags weighted by one row of a random mixing matrix (columns summing
+    to 1), its own per-component kappa; per-component M/L.  ``tags_q``:
+    each tag's own axis ratio, the inclinations then drawn to deproject the
+    flattest (barq 0.75-0.92 of its axis ratio)."""
+    rng = np.random.default_rng(seed)
+    tags, mass = CHEMO["mge_tags"], CHEMO["mge_mass"]
+    i, s, q = (np.asarray(tags[k]) for k in ("i", "s", "q"))
+    tag = np.asarray(tags["pop"])
+    args = _inputs(W, bh=bh, seed=seed)
+    if tags_q is not None:
+        q = np.asarray(tags_q)[tag]
+        barq = q.min() * rng.uniform(0.75, 0.92, (W, 1))
+        args["incl"] = np.arccos(np.sqrt((q.min() ** 2 - barq ** 2) / (1 - barq ** 2)))
+        args["incl"][0] = 0.05
+    h = rng.uniform(0.1, 1.0, (n_pops, W, 3))
+    h /= h.sum(axis=0, keepdims=True)
+    args.update(lum_i=i * h[:, :, tag], lum_s=s, lum_q=q,
+                mass_i=np.asarray(mass["i"]), mass_s=np.asarray(mass["s"]),
+                mass_q=np.asarray(mass["q"]),
+                kappa=rng.uniform(-0.5, 0.8, (n_pops, W, i.size)),
+                mscale=rng.uniform(2.0, 3.0, (W, len(mass["i"]))))
+    return args
+
+
+def _one_population(args, p):
+    return dict(args, lum_i=args["lum_i"][p], kappa=args["kappa"][p])
+
+
+POP_CASES = {
+    "chemo 32, 3 populations": dict(W=32),
+    "chemo 32, 1 population": dict(W=32, n_pops=1),
+    "chemo 256, 3 populations, bh": dict(W=256, bh=True),
+    "chemo 32, tags 0.9 / 0.85 / 0.8": dict(W=32, tags_q=(0.9, 0.85, 0.8)),
+    "chemo 32, tags 0.95 / 0.8 / 0.6": dict(W=32, tags_q=(0.95, 0.8, 0.6)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(POP_CASES))
+def test_population_kernel_against_the_plain_engine(case, cuda_device):
+    """Each population of one call against its own float64 plain call, at 4x
+    the plain float32 engine's error (field and band); against a kernel call
+    of its own (which centres the LOS map on its own tracer's ridge, not on
+    the summed tracer's: at one axis ratio the two centres differ by a
+    rounding of the mean axis ratio) within the same 4x; a population axis
+    of one is the two-dimensional call bit for bit; one launch a call and
+    the same bits twice.  With each tag's own axis ratio the population
+    axis computes the plain engine centred on the summed tracer
+    (``ridge_i``; ``test_shared_ridge_departure`` gives how far that is
+    from each population's own): it is held to that, float64 against
+    float32, at the same 4x, and each population's kernel call of its own
+    (ChemoProfiles' binding there) to its own float64 plain call at 4x."""
+    spec = dict(POP_CASES[case])
+    tags_q = spec.get("tags_q")
+    orders = dict(n_u=24, n_zeta=32)
+    args = _pop_inputs(**spec)
+    a32 = _to(args, torch.float32, cuda_device)
+    launches = ops.JAM_MOMENTS.launches
+    got = ops.jam_moments(**a32, **orders)
+    again = ops.jam_moments(**a32, **orders)
+    torch.cuda.synchronize()
+    assert ops.JAM_MOMENTS.launches == launches + 2
+    n_pops = args["lum_i"].shape[0]
+    assert got.vz.shape == (n_pops, spec["W"], args["x"].size)
+    assert torch.equal(got.valid, again.valid)
+    for name in ("vz", "v2zz"):            # bits: the invalid walker's NaN too
+        assert torch.equal(getattr(got, name).view(torch.int32),
+                           getattr(again, name).view(torch.int32))
+    x, y = args["x"], args["y"]
+
+    def within_4x(g, pl, w, what):
+        """g's error against w at most 4x pl's, of the field and the band."""
+        scale = w.abs().max()
+        err_plain = float((pl - w).abs().max() / scale)
+        err_kernel = float((g - w).abs().max() / scale)
+        assert err_kernel <= 4.0 * err_plain, (what, err_kernel, err_plain)
+        assert _band_err(g, w, x, y) <= 4.0 * _band_err(pl, w, x, y), what
+        return err_plain
+
+    for p in range(n_pops):
+        one = _one_population(args, p)
+        want = _plain(one, torch.float64, cuda_device, orders)
+        plain = _plain(one, torch.float32, cuda_device, orders)
+        own = ops.jam_moments(**_to(one, torch.float32, cuda_device), **orders)
+        assert torch.equal(got.valid[p], plain[2]) and torch.equal(want[2], plain[2])
+        ok = want[2]
+        assert not bool(ok[0]) and int(ok.sum()) == spec["W"] - 1
+        if tags_q is not None:
+            shared = dict(one, ridge_i=args["lum_i"].sum(axis=0))
+            want_c = _plain(shared, torch.float64, cuda_device, orders)
+            plain_c = _plain(shared, torch.float32, cuda_device, orders)
+        for k, name in enumerate(("vz", "v2zz")):
+            g = getattr(got, name)[p][ok].double()
+            o = getattr(own, name)[ok].double()
+            pl, w = plain[k][ok].double(), want[k][ok]
+            if n_pops == 1:
+                assert torch.equal(getattr(got, name)[p].view(torch.int32),
+                                   getattr(own, name).view(torch.int32))
+            if tags_q is not None:
+                within_4x(g, plain_c[k][ok].double(), want_c[k][ok], (p, name, "shared"))
+                within_4x(o, pl, w, (p, name, "own"))
+                continue
+            err_plain = within_4x(g, pl, w, (p, name))
+            own_gap = float((g - o).abs().max() / w.abs().max())
+            assert own_gap <= 4.0 * err_plain, (p, name, own_gap, err_plain)
+
+
+def _kernel_ms(args, orders, n=20, repeats=5):
+    """Device ms of a kernel call on ``args``: CUDA events around ``n``
+    calls launched back to back behind a spin kernel (~50 ms), so the host
+    has queued them all before the first starts and the events time the
+    device alone; the median of ``repeats`` such runs, after two warm-up
+    calls."""
+    for _ in range(2):
+        ops.jam_moments(**args, **orders)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(n):
+            ops.jam_moments(**args, **orders)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
+@pytest.mark.cuda
+def test_population_kernel_timing(cuda_device):
+    """The chemo chunk's shape, 32 walkers x 1536 positions x 32 LOS nodes,
+    L 15, M 5: 3 populations in one call take at most 1.5x one population's
+    call (the pair table is built and contracted once); 3 populations
+    stacked on the walker axis (96 walkers) are printed beside them."""
+    orders = dict(n_u=24, n_zeta=32)
+    args = _pop_inputs(32)
+    three = _to(args, torch.float32, cuda_device)
+    one = _to(_one_population(args, 0), torch.float32, cuda_device)
+    stacked = _to({k: (np.concatenate(list(v)) if k in ("lum_i", "kappa") else
+                       np.concatenate([v] * 3) if isinstance(v, np.ndarray) and v.ndim == 2
+                       and v.shape[0] == 32 else v)
+                   for k, v in args.items()}, torch.float32, cuda_device)
+    ms = {"3 populations, one call": _kernel_ms(three, orders),
+          "1 population": _kernel_ms(one, orders),
+          "3 populations on the walker axis": _kernel_ms(stacked, orders)}
+    print(json.dumps({"jam_moments_populations_ms": ms,
+                      "device": torch.cuda.get_device_name(0)}))
+    assert ms["3 populations, one call"] <= 1.5 * ms["1 population"], ms
+
+
+def _plain_ms(args, device, orders):
+    """Device ms of one plain float32 engine call on ``args``, events around
+    it after a warm-up call."""
+    a32 = _to(args, torch.float32, device)
+    jam_los_moments(**a32, **orders)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    jam_los_moments(**a32, **orders)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+@pytest.mark.cuda
+def test_one_population_kernel_timing(cuda_device):
+    """The kernel at one population, two-dimensional calls alone (so that
+    the same test times a tree without the population axis): 32 walkers x
+    1536 positions x 32 LOS nodes, at the JAM cells' 5 Gaussians with a
+    black hole and at the chemo configuration's 15 tagged Gaussians without
+    one; the device ms a call printed, each under a tenth of the plain
+    float32 engine's in one call."""
+    orders = dict(n_u=24, n_zeta=32)
+    cells = _inputs(32)
+    chemo_one = _one_population(_pop_inputs(32), 0)
+    out = {}
+    for label, args in (("JAM cells, 5 Gaussians, bh", cells),
+                        ("chemo, 15 Gaussians, one population", chemo_one)):
+        a32 = _to(args, torch.float32, cuda_device)
+        ms = _kernel_ms(a32, orders)
+        plain_ms = _plain_ms(args, cuda_device, orders)
+        out[label] = {"ms": ms, "plain_ms": plain_ms}
+        assert ms < 0.1 * plain_ms, (label, ms, plain_ms)
+    print(json.dumps({"jam_moments_one_population_ms": out,
+                      "device": torch.cuda.get_device_name(0)}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tags_q", [None, (0.85, 0.83, 0.8)],
+                         ids=["one axis ratio", "tags 0.85 / 0.83 / 0.8"])
+def test_chemo_grid_tier_on_the_card(tags_q, cuda_device, monkeypatch):
+    """ChemoProfiles' grid tier on the card (the chemo cell's orders, 2000
+    stars, 64 walkers in chunks of 32): one kernel launch a walker chunk for
+    its 3 populations (one a population where the tags have axis ratios of
+    their own), no plain call; its lnprob against the float64 plain tier's
+    within 4x the float32 plain tier's own gap."""
+    sys.path.insert(0, str(ROOT))
+    from perfbench import harness
+
+    monkeypatch.delenv(SWITCH, raising=False)
+    config = {"engine": {"grid_min_stars": 100}}
+    if tags_q is not None:
+        config.update(_tags_q(tags_q))
+    cell = harness.Cell("jam_chemo_3pop.mock1e5_w128",
+                        overrides={"catalog": {"n_stars": 2000}, "config": config})
+    catalog = cell.maker.make(cell.spec["catalog"], 3, cell.config, cuda_device)
+    thetas = cell.initials(3, 0)[0][:64]
+
+    def lnprob(dtype, plain=False):
+        fit = cell.builder.build(cell.config, catalog, cuda_device, 5, dtype=dtype)
+        assert fit.lnprob_tier() == "grid"
+        if plain:
+            monkeypatch.setenv(SWITCH, "1")
+        try:
+            before = (*_counts(), profiling.counters()["jam.populations"])
+            out = fit.batched_lnprob()(torch.as_tensor(thetas, dtype=dtype,
+                                                       device=cuda_device))
+            torch.cuda.synchronize()
+            after = (*_counts(), profiling.counters()["jam.populations"])
+        finally:
+            monkeypatch.delenv(SWITCH, raising=False)
+        return out.double(), tuple(b - a for a, b in zip(before, after))
+
+    got, counts = lnprob(torch.float32)
+    assert counts == ((2, 0, 6) if tags_q is None else (6, 0, 6))
+    want, _ = lnprob(torch.float64)
+    plain, plain_counts = lnprob(torch.float32, plain=True)
+    assert plain_counts == (0, 6, 6)
+    assert torch.isfinite(want).all()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    assert float((got - want).abs().max()) <= 4.0 * float((plain - want).abs().max())

@@ -134,8 +134,42 @@ def test_counters_match_the_fit(tmp_path):
     # two fit ids, one build (the second fit finds it cached), nothing
     # dropped, no JAM engine call
     assert diff == {"runner.fits": 2, "tier.builds": 1, "spans.dropped": 0,
-                    "jam.engine_kernel": 0, "jam.engine_plain": 0}
+                    "jam.engine_kernel": 0, "jam.engine_plain": 0, "jam.populations": 0}
     assert profiling.counters()["runner.fits"] == before["runner.fits"] + 2
+
+
+def test_mixture_span_under_the_chunks():
+    """ChemoProfiles (the benchmark's 3-population configuration at a tiny
+    size, the grid tier): one ``tier.mixture`` span a walker chunk, each
+    under its ``tier.chunk``; one plain engine call and one population a
+    population a chunk."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from perfbench import harness
+
+    cell = harness.Cell("jam_chemo_3pop.mock1e5_w128", overrides={
+        "catalog": {"n_stars": 120},
+        "config": {"engine": {"n_u": 4, "n_zeta": 4, "grid_orders": [8, 4],
+                              "grid_min_stars": 100}}})
+    catalog = cell.maker.make(cell.spec["catalog"], 3, cell.config, "cpu")
+    fit = cell.builder.build(cell.config, catalog, "cpu", 5)
+    fit.jam_grid_chunk = 4
+    pos = cell.initials(3, 0)[0][:RUN["n_walkers"]]
+    fit.batched_lnprob()
+    before = profiling.counters()
+    with profiling.tracing():
+        fit(pos=pos, prefix=None, **RUN)
+    spans = profiling.spans()
+    chunks = _by_name(spans)["tier.chunk"]
+    # the initial walkers' call (8 walkers) and two half-ensemble calls a step
+    assert chunks == 2 + 2 * RUN["n_steps"]
+    assert _parents(spans, "tier.mixture") == {"tier.chunk": chunks}
+    after = profiling.counters()
+    assert after["jam.engine_plain"] - before["jam.engine_plain"] == 3 * chunks
+    assert after["jam.populations"] - before["jam.populations"] == 3 * chunks
+    assert after["jam.engine_kernel"] == before["jam.engine_kernel"]
 
 
 @pytest.mark.parametrize("model", ["ModelFit", "ConstantFit"])
