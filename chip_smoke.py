@@ -132,7 +132,14 @@ calls, and fails (non-zero exit) if any phase does:
     population against the float64 plain engine at the same 4x gate,
     bitwise repeatable, timed against one population's call, the 3
     populations on the walker axis, the plain engine (a call a population
-    in 32-walker chunks) and its bound;
+    in 32-walker chunks) and its bound; and kernel 15
+    (``ops.jam_grid_reconstruct``, the grid's star reconstruction) on the
+    coefficients the JAM cells' and the chemo cell's grid tiers build for
+    one 32-walker chunk at their catalogs' sizes (32 x 16384 with a theta0
+    a walker, 96 walker-populations x 1e5 with theta0 0), each field against
+    the float64 plain reconstruction within 4x the plain float32 version's
+    own error, bitwise repeatable, timed against the plain float32 path and
+    its bound, and its SASS free of tensor-core and atomic instructions;
 35. main path L1, the tempered recipe: ``example/omega_cen_tempered.json``
     without its ``parallel`` block (a 4-device mesh) and with
     ``sampling.n_temps`` 4, through ``cli.run.main`` in this process: a
@@ -218,10 +225,12 @@ route, source, launch count on the main paths, error, times and bound at
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -2617,7 +2626,7 @@ def phase_jam_kernel(device, k2):
                          L=n_lum, M=n_mass, errors=errs,
                          max_abs_err=max(e["abs"] for e in errs.values()), ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-    return dict(rows=rows, chemo=jam_population_row(device))
+    return dict(rows=rows, chemo=jam_population_row(device), grid=jam_grid_rows(device))
 
 
 def jam_population_row(device):
@@ -2695,6 +2704,131 @@ def jam_population_row(device):
                 n_u=args["n_u"], L=n_lum, M=n_mass, errors=errs,
                 max_abs_err=max(e["abs"] for e in errs.values()), ms=ms, one_ms=one_ms,
                 stacked_ms=stacked_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# kernel 15 (the JAM grid's star reconstruction): a row a benchmark cell, one
+# walker chunk of the cell's grid tier at its own catalog size; the ops its
+# SASS may not hold (tensor cores, atomics)
+JAM_GRID_ROWS = (("JAM cells", "jam_axisymmetric_bh.mock16k_w64", 32),
+                 ("chemo cell", CHEMO_CELL, 32))
+JAM_GRID_BANNED_OPS = ("HMMA", "HGMMA", "IMMA", "ATOM", "ATOMS", "ATOMG", "RED")
+
+
+def jam_grid_args(cell_name, n_walkers, device, seed=341):
+    """The arguments a benchmark cell's grid tier hands the star
+    reconstruction (``ops.jam_grid_reconstruct``) for one chunk of
+    ``n_walkers`` of the cell's initials, its catalog at the cell's size,
+    built on the card in float32: (spec, c1, c2, theta0, floor)."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch.models.jam import grid
+
+    sys.path.insert(0, str(REPO))
+    from perfbench import harness
+
+    cell = harness.Cell(cell_name)
+    catalog = cell.maker.make(cell.spec["catalog"], seed, cell.config, device)
+    fit = cell.builder.build(cell.config, catalog, device, seed)
+    if fit.lnprob_tier() != "grid" or (fit.device.type == "cuda"
+                                       and fit.dtype != torch.float32):
+        raise AssertionError(f"{cell_name}: the {fit.lnprob_tier()} tier in {fit.dtype}")
+    seen, real = [], grid.jam_grid_reconstruct
+
+    def capture(*args):
+        seen.append(args)
+        return real(*args)
+
+    fit.jam_grid_chunk = n_walkers
+    grid.jam_grid_reconstruct = capture
+    try:
+        thetas = cell.initials(seed, 0)[0][:n_walkers]
+        fit.batched_lnprob()(fit._to_device(thetas))
+    finally:
+        grid.jam_grid_reconstruct = real
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} reconstructions for one chunk")
+    return seen[0]
+
+
+def jam_grid_sass():
+    """Kernel 15's SASS (``cuobjdump -sass`` on the built library): each
+    instantiation's FFMA count, and an AssertionError where it holds a
+    tensor-core or atomic op (``JAM_GRID_BANNED_OPS``)."""
+    from mcmc_dynamics_tpu_torch.ops._build import build_library, find_nvcc
+    from sass_pair_counts import _instructions
+
+    cuobjdump = pathlib.Path(find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build_library().path)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    out = {}
+    for block in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "jam_grid_reconstruct_kernel" not in name:
+            continue
+        ops = collections.Counter(op for _, op, _ in _instructions(block))
+        banned = {op: n for op, n in ops.items() if op in JAM_GRID_BANNED_OPS}
+        if banned:
+            raise AssertionError(f"jam_grid_reconstruct_kernel's SASS holds {banned}")
+        out[name] = dict(instructions=sum(ops.values()), FFMA=ops["FFMA"])
+    if not out:
+        raise AssertionError("jam_grid_reconstruct_kernel not found in the library's SASS")
+    return out
+
+
+def jam_grid_rows(device):
+    """Kernel 15 beside the plain float32 reconstruction, a row each of
+    ``JAM_GRID_ROWS``: each field's largest error against the float64 plain
+    reconstruction on the same coefficients (of the field's largest value),
+    within JAM_KERNEL_ERR_RATIO of the plain float32 version's own; two calls
+    the same bits; the device ms of both, and the bound from the
+    configurations' ``work`` count of the reconstruction (4 N n_r n_phi
+    operations and an exp and a sqrt a star, a walker-population; the star
+    basis and harmonics read once, the moments written once)."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch import ops
+    from mcmc_dynamics_tpu_torch.ops.jam_grid_kernel import jam_grid_reconstruct_plain
+
+    rows = []
+    for label, cell_name, n_walkers in JAM_GRID_ROWS:
+        spec, c1, c2, theta0, floor = jam_grid_args(cell_name, n_walkers, device)
+        spec64 = spec._replace(**{k: v.double() for k, v in spec._asdict().items()
+                                  if torch.is_tensor(v)})
+        th64 = theta0.double() if torch.is_tensor(theta0) else theta0
+        want = jam_grid_reconstruct_plain(spec64, c1.double(), c2.double(), th64, floor)
+        plain = jam_grid_reconstruct_plain(spec, c1, c2, theta0, floor)
+        got = ops.jam_grid_reconstruct(spec, c1, c2, theta0, floor)
+        again = ops.jam_grid_reconstruct(spec, c1, c2, theta0, floor)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, a, q, w in zip(("vz", "v2zz"), got, again, plain, want):
+            if not torch.equal(g.view(torch.int32), a.view(torch.int32)):
+                raise AssertionError(f"jam_grid_reconstruct: {name} not bitwise repeatable")
+            ok = torch.isfinite(w)
+            if not bool(torch.isfinite(g[ok]).all()):
+                raise AssertionError(f"jam_grid_reconstruct: {name} not finite")
+            g, q, w = g[ok].double(), q[ok].double(), w[ok]
+            scale = w.abs().max()
+            e = dict(abs=float((g - w).abs().max()),
+                     field=float((g - w).abs().max() / scale),
+                     field_plain=float((q - w).abs().max() / scale))
+            if e["field"] > JAM_KERNEL_ERR_RATIO * e["field_plain"]:
+                raise AssertionError(f"jam_grid_reconstruct {label}: {name} error "
+                                     f"{e['field']:.4g}, plain float32 "
+                                     f"{e['field_plain']:.4g}")
+            errs[name] = e
+        ms = cuda_ms(lambda: ops.jam_grid_reconstruct(spec, c1, c2, theta0, floor), reps=20)
+        plain_ms = cuda_ms(lambda: jam_grid_reconstruct_plain(spec, c1, c2, theta0, floor),
+                           reps=5)
+        W, n_r, n_phi = c1.shape
+        N = spec.t_star.shape[0]
+        b_ms, b_by = bound_ms(4 * (N * n_r + 4 * N * n_phi + 2 * W * N),
+                              W * 4 * N * n_r * n_phi, W * 2 * N)
+        rows.append(dict(mge=label, W=W, N=N, n_r=n_r, n_phi=n_phi,
+                         theta0="a walker" if torch.is_tensor(theta0) else theta0,
+                         errors=errs, max_abs_err=max(e["abs"] for e in errs.values()),
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    return dict(rows=rows, sass=jam_grid_sass())
 
 
 # ----------------------------------------------------------------------------- main
@@ -3402,8 +3536,9 @@ def phase_mesh_four(device, path_a_chain, tmp, profiling=False):
         m1[label] = entry
     m2 = {"backend": ranks[0]["m2"]["backend"]}
     for path, kernel, *_ in M2_CASES:
-        # K2's grid partial binds the JAM kernel engine
-        expect = {"jam_moments"} if path == "K2" else {kernel.replace("_lnb", "")}
+        # K2's grid partial binds the JAM kernel engine and reconstruction
+        expect = ({"jam_moments", "jam_grid_reconstruct"} if path == "K2"
+                  else {kernel.replace("_lnb", "")})
         if path == "F2":
             expect.add("background_lse")         # SingleStars at construction
         entry = dict(ranks[0]["m2"][path])
@@ -3998,7 +4133,9 @@ def main(argv=None) -> int:
           f"benchmark_lnprob {json.dumps(path_j['bench'])} | launches "
           f"{path_j['launches']}")
 
-    jam = drive("JAM engine", lambda: phase_jam_engine(device), {"jam_moments"})
+    # the JAM paths' float32 grid tiers launch kernel 15 beside kernel 14
+    jam_kernels = {"jam_moments", "jam_grid_reconstruct"}
+    jam = drive("JAM engine", lambda: phase_jam_engine(device), jam_kernels)
     for kind in JAM_KINDS:
         c = jam[kind]
         print(f"phase 32 JAM engine on the card ({JAM_MODELS[kind]}, validate set-up, "
@@ -4010,7 +4147,7 @@ def main(argv=None) -> int:
     print(f"  JAM engine timing (Axisymmetric, free mbh): "
           f"{json.dumps(jam['timing'])} | bound at 512 walkers, grid tier: "
           f"{json.dumps(jam['bound'])} | launches {jam['launches']}")
-    k1 = drive("K1", lambda: phase_production_recipe(device), {"jam_moments"})
+    k1 = drive("K1", lambda: phase_production_recipe(device), jam_kernels)
     c = k1["checks"]
     print(f"phase 33 main path K1 (production recipe, cli.run, AnalyticalProfiles, "
           f"{k1['stars']} stars, auto -> grid tier): cli.run {k1['cli_s']:.2f} s "
@@ -4021,9 +4158,8 @@ def main(argv=None) -> int:
           f"grid vs direct {c['grid-direct']:.4g} (spread {c['spread']:.4g}) | "
           f"{K1_STEPS['n_walkers']} walkers: {k1['ms_per_step']:.4f} ms/step, bitwise "
           f"resume ok | launches {k1['launches']}")
-    k2 = drive("K2", lambda: phase_jam_recovery(device), {"jam_moments"})
-    jam_kernel = drive("jam_moments", lambda: phase_jam_kernel(device, k2),
-                       {"jam_moments"})
+    k2 = drive("K2", lambda: phase_jam_recovery(device), jam_kernels)
+    jam_kernel = drive("jam_moments", lambda: phase_jam_kernel(device, k2), jam_kernels)
     print(f"phase 34 main path K2 (Axisymmetric, grid tier, {k2['stars']}-star mock "
           f"from the recipe's MGE, free mlr/barq/kappa_x/kappa_y/mbh/delta_v): "
           f"{k2['walkers']} walkers x {k2['steps']} steps | {k2['ms_per_step']:.4f} "
@@ -4056,6 +4192,18 @@ def main(argv=None) -> int:
           f"populations on the walker axis {row['stacked_ms']:.4f} ms | plain f32 (a call "
           f"a population, 32-walker chunks) {row['plain_ms']:.4f} ms | bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    for row in jam_kernel["grid"]["rows"]:
+        print(f"phase 34 kernel 15 jam_grid_reconstruct ({row['mge']}, its grid tier's "
+              f"chunk: {row['W']} walker(-population)s x {row['N']} stars, n_r "
+              f"{row['n_r']}, n_phi {row['n_phi']}, theta0 {row['theta0']}): "
+              + " | ".join(f"{n} max |d| {v['abs']:.4g}, of the field's largest "
+                           f"{v['field']:.4g} (plain f32 {v['field_plain']:.4g})"
+                           for n, v in row["errors"].items())
+              + f" | bitwise repeatable | kernel {row['ms']:.4f} ms | plain f32 "
+              f"{row['plain_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+    print(f"phase 34 kernel 15 SASS (cuobjdump): {json.dumps(jam_kernel['grid']['sass'])}"
+          f", no {'/'.join(JAM_GRID_BANNED_OPS)}")
     print(f"  launches {jam_kernel['launches']}")
 
     l1 = drive("L1", lambda: phase_tempered_recipe(device), {"model_lnlike"})
@@ -4249,7 +4397,8 @@ def main(argv=None) -> int:
             ("model_sufficient_mma", "model_sufficient_mma.cu", "mcmc_dynamics_tpu/ops/model_sufficient.py:544", sufficient_mma[0], [(None, sufficient_mma[1])]),
             ("constant_gb_v2", "constant_gb_v2.cu", "tools/probe_mixture.py:124", gb_v2[0], [(None, gb_v2[1])]),
             ("model_gb_v2", "model_gb_v2.cu", "tools/probe_mixture.py:231", model_v2[0], [(None, model_v2[1])]),
-            ("jam_moments", "jam_moments.cu", None, jam_kernel["rows"][2], [("K2", jam_kernel["rows"][0]), ("JAM cells (perfbench)", jam_kernel["rows"][1]), ("chemo cell (perfbench), 3 populations", jam_kernel["chemo"])])]
+            ("jam_moments", "jam_moments.cu", None, jam_kernel["rows"][2], [("K2", jam_kernel["rows"][0]), ("JAM cells (perfbench)", jam_kernel["rows"][1]), ("chemo cell (perfbench), 3 populations", jam_kernel["chemo"])]),
+            ("jam_grid_reconstruct", "jam_grid.cu", None, jam_kernel["grid"]["rows"][1], [("JAM cells (perfbench)", jam_kernel["grid"]["rows"][0]), ("chemo cell (perfbench)", jam_kernel["grid"]["rows"][1])])]
     kernels = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"mcmc_dynamics_tpu_torch/csrc/{source}", "replaces": replaces,

@@ -9,6 +9,7 @@ one NVIDIA GPU:
     python3 kernel_variants.py model_sufficient background_lse
     python3 kernel_variants.py constant_gb_v2 model_gb_v2
     python3 kernel_variants.py model_sufficient_mma
+    python3 kernel_variants.py jam_grid
     python3 kernel_variants.py --overlap          # FP32 work beside TF32 wgmma
 
 A variant is a kernel's ``csrc/`` source (or a header it includes) with
@@ -35,6 +36,8 @@ import statistics
 import subprocess
 import sys
 import tempfile
+
+import numpy as np
 
 import chip_smoke
 
@@ -707,6 +710,44 @@ ARG_EDITS = {
         lambda args: [_unsplit_table(args[0]), *args[1:]],
 }
 
+# kernel 15's product over a chunk of orders (the stars' basis a value at a
+# time), and the same with a float4 of the basis per four orders
+_JAM_GRID_PRODUCT = """#pragma unroll
+        for (int dd = 0; dd < kD; ++dd) {
+          const float4 c0 = ld4(cb + dd * 2 * kK);
+          const float4 c1 = ld4(cb + dd * 2 * kK + 4);
+          const float4 c2 = ld4(cb + dd * 2 * kK + 8);
+          const float c[kK] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y,
+                               c1.z, c1.w, c2.x, c2.y, c2.z, c2.w};
+#pragma unroll
+          for (int j = 0; j < kLaneStars; ++j) {
+            const float tj = tb[16 * j * kTPitch + dd];
+#pragma unroll
+            for (int k = 0; k < kK; ++k) acc[j][k] = fmaf(tj, c[k], acc[j][k]);
+          }
+        }"""
+_JAM_GRID_PRODUCT_FLOAT4 = """#pragma unroll
+        for (int g = 0; g < kD / 4; ++g) {
+          float4 tv[kLaneStars];
+#pragma unroll
+          for (int j = 0; j < kLaneStars; ++j) tv[j] = ld4(tb + 16 * j * kTPitch + 4 * g);
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            const int dd = 4 * g + o;
+            const float4 c0 = ld4(cb + dd * 2 * kK);
+            const float4 c1 = ld4(cb + dd * 2 * kK + 4);
+            const float4 c2 = ld4(cb + dd * 2 * kK + 8);
+            const float c[kK] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y,
+                                 c1.z, c1.w, c2.x, c2.y, c2.z, c2.w};
+#pragma unroll
+            for (int j = 0; j < kLaneStars; ++j) {
+              const float tj = (&tv[j].x)[o];
+#pragma unroll
+              for (int k = 0; k < kK; ++k) acc[j][k] = fmaf(tj, c[k], acc[j][k]);
+            }
+          }
+        }"""
+
 VARIANTS = {
     "constant_gb_v2": ("constant_gb_v2.cu", {
         "logf, log1pf(expf) (the accurate functions)": [_ACCURATE_MATH],
@@ -914,6 +955,25 @@ VARIANTS = {
   for (int t = 0; t < T; ++t) d_min[t] = fabsf(c4[lane].x - vt[t]);""")],
         "no exp (a timing probe: wrong values)": [
             ('asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));', "y = x;")],
+    }),
+    "jam_grid": ("jam_grid.cu", {
+        "orders staged 16 at a time": [("kD = 32;", "kD = 16;")],
+        "two stages (a double buffer)": [("kStages = 3;", "kStages = 2;")],
+        "four stages of 16 orders": [("kD = 32;", "kD = 16;"), ("kStages = 3;", "kStages = 4;")],
+        "a float4 of the basis per four orders (32 registers)": [(
+            _JAM_GRID_PRODUCT, _JAM_GRID_PRODUCT_FLOAT4)],
+        "4-byte copies only": [("  // persistent blocks:",
+                                "  vec.t = vec.c = vec.g = 0;\n  // persistent blocks:")],
+        "a block a tile (no persistent walk)": [(
+            "std::min<long long>(n_tiles, static_cast<long long>(sms) *\n"
+            "                                                            std::max(per_sm, 1));",
+            "n_tiles + 0 * sms * per_sm;")],
+        "timing probe: no copies after the first stages (wrong values)": [
+            ("        produce();\n        const float* tb", "        if (q < 0) produce();\n"
+             "        const float* tb")],
+        "timing probe: no barrier a chunk (wrong values)": [
+            ("        __syncthreads();  // stage q is in; every warp is done with stage q - 1's "
+             "buffers\n", "")],
     }),
 }
 
@@ -1155,6 +1215,8 @@ def kernel_cases(kernel_name, device):
             cases.append((chip_smoke.size_label(shape), ops.background_logsumexp, a32,
                           plain, chip_smoke.BACKGROUND_TOL))
         return ops.BACKGROUND_LSE, cases
+    if kernel_name == "jam_grid":
+        return ops.JAM_GRID_RECONSTRUCT, _jam_grid_cases(device)
     fit, _ = chip_smoke.mock_fit(device, n_stars=100_000, seed=5)
     stats = fit.tensor_stats()
     stats64 = stats.to(dtype=torch.float64)
@@ -1167,6 +1229,43 @@ def kernel_cases(kernel_name, device):
         cases.append((f"{n_walkers} walkers", lambda p: ops.model_tensor_lnlike(stats, p),
                       [params], plain, chip_smoke.TENSOR_TOL))
     return ops.MODEL_TENSOR, cases
+
+
+def _jam_grid_cases(device):
+    """Kernel 15 at the chemo cell's chunk (96 walker-populations x 1e5
+    stars) and the JAM cells' (32 x 16384), n_r 128, n_phi 12: a polar grid
+    of random star offsets, smooth random coefficients, a theta0 a walker;
+    the two fields stacked, against the float64 plain reconstruction."""
+    import torch
+
+    from mcmc_dynamics_tpu_torch import ops
+    from mcmc_dynamics_tpu_torch.models.jam.grid import JamGridSpec
+    from mcmc_dynamics_tpu_torch.ops.jam_grid_kernel import jam_grid_reconstruct_plain
+
+    cases = []
+    for W, N in ((96, 100_000), (32, 16384)):
+        rng = np.random.default_rng(N)
+        r = np.abs(rng.normal(0.0, 300.0, N)) + 0.5
+        phi = rng.uniform(-np.pi, np.pi, N)
+        spec = JamGridSpec.build(r * np.cos(phi), r * np.sin(phi), n_r=128, n_phi=12,
+                                 dtype=torch.float32, device=device)
+        fall = 1.0 / (1.0 + np.arange(128))[:, None] / (1.0 + np.arange(12))[None, :]
+        c1 = 0.3 * rng.normal(size=(W, 128, 12)) * fall
+        c2 = 0.5 * rng.normal(size=(W, 128, 12)) * fall
+        c2[:, 0, 0] += 5.0
+        c1, c2 = (torch.as_tensor(c, dtype=torch.float32, device=device) for c in (c1, c2))
+        theta0 = torch.as_tensor(rng.uniform(-1.0, 1.0, (W, 1)), dtype=torch.float32,
+                                 device=device)
+        spec64 = spec._replace(**{k: v.double() for k, v in spec._asdict().items()
+                                  if torch.is_tensor(v)})
+
+        def plain(spec64=spec64, c1=c1, c2=c2, theta0=theta0):
+            return torch.stack(jam_grid_reconstruct_plain(
+                spec64, c1.double(), c2.double(), theta0.double(), 1e-3))
+        cases.append((f"{W} x {N}",
+                      lambda *a: torch.stack(ops.jam_grid_reconstruct(*a)),
+                      [spec, c1, c2, theta0, 1e-3], plain, dict(rtol=1e-4, atol=1e-4)))
+    return cases
 
 
 def clocks_under_load(run, args, seconds=2.0):

@@ -322,7 +322,7 @@ class Axisymmetric(Runner):
         theta0 = _atan2(p["kappa_y"], p["kappa_x"])
         vz, v2zz, valid = jam_grid_moments(
             spec, lambda gx, gy: self._moments_at(p, gx, gy, kernel), theta0,
-            floor=floor)
+            floor=floor, kernel=kernel)
         return self._terms_from_moments(p, data, vz, v2zz, valid)
 
     def _grid_floor(self) -> float:

@@ -301,7 +301,7 @@ class ChemoProfiles(AnalyticalProfiles):
             return tuple(t.flatten(0, 1) for t in self._population_moments(p, gx, gy,
                                                                          kernel))
 
-        moments = jam_grid_moments(spec, at, 0.0, floor=floor)
+        moments = jam_grid_moments(spec, at, 0.0, floor=floor, kernel=kernel)
         return self._mixture_terms(p, data, *(t.unflatten(0, (self.n_pops, -1))
                                               for t in moments))
 

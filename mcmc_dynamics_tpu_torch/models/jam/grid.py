@@ -9,8 +9,11 @@ star.  The kappa-frame rotation by theta0 = atan2(kappa_y, kappa_x) acts on the
 harmonic multipliers only, so the per-star bases are built once, on the host.
 
 Here the walker axis leads: ``moments_at`` returns (W, G) fields, ``theta0`` is
-(W,), (W, 1) or a number, and the products are batched ``torch.matmul`` calls in
-the working dtype's full precision.
+(W,), (W, 1) or a number, and the transform's products are batched
+``torch.matmul`` calls in the working dtype's full precision.  The star
+reconstruction is ``ops.jam_grid_reconstruct``: one CUDA kernel launch on a
+kernel tier, its plain torch version (the products as batched ``torch.matmul``
+calls) elsewhere.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ...ops.jam_grid_kernel import jam_grid_reconstruct, jam_grid_reconstruct_plain
 
 __all__ = ["JamGridSpec", "jam_grid_moments"]
 
@@ -104,13 +109,16 @@ class JamGridSpec(NamedTuple):
                    n_r=int(n_r), n_phi=int(n_phi))
 
 
-def jam_grid_moments(spec: JamGridSpec, moments_at, theta0, floor=1e-12):
+def jam_grid_moments(spec: JamGridSpec, moments_at, theta0, floor=1e-12, kernel=False):
     """Star-position moments through the grid for W walkers: solve the G grid
     points, transform, reconstruct.
 
     ``moments_at(x, y) -> (vz, v2zz, valid)`` evaluates the engine in the
     model frame ((W, G) fields, (W,) flags); ``theta0`` is the kappa-frame
     rotation angle.  Returns ``(vz, v2zz, valid)`` at every star, (W, N).
+    With ``kernel`` the reconstruction is the CUDA kernel's
+    (:func:`~mcmc_dynamics_tpu_torch.ops.jam_grid_kernel.jam_grid_reconstruct`),
+    else its plain version.
 
     The interpolated fields are ``log(v2zz + floor)`` (even harmonics) and the
     bounded rotation fraction ``vz / sqrt(v2zz + floor)`` (odd harmonics), as in
@@ -127,17 +135,6 @@ def jam_grid_moments(spec: JamGridSpec, moments_at, theta0, floor=1e-12):
     c1 = torch.matmul(spec.dct_r, torch.matmul(wg, spec.dct_odd.T))    # (W, n_r, K)
     c2 = torch.matmul(spec.dct_r, torch.matmul(lg, spec.dct_even.T))
 
-    # kappa-frame rotation in harmonic space
-    theta0 = torch.as_tensor(theta0, dtype=vz_g.dtype,
-                             device=vz_g.device).reshape(-1, 1, 1)    # (W, 1, 1)
-    co, so = torch.cos(spec.mult_odd * theta0), torch.sin(spec.mult_odd * theta0)
-    ce, se = torch.cos(spec.mult_even * theta0), torch.sin(spec.mult_even * theta0)
-
-    # star reconstruction: one (N, n_r) @ (n_r, K) product per moment and walker
-    h1 = torch.matmul(spec.t_star, c1)                                  # (W, N, K)
-    h2 = torch.matmul(spec.t_star, c2)
-    w = torch.sum(h1 * (spec.cos_odd * co + spec.sin_odd * so), dim=-1)
-    v2f = torch.exp(torch.sum(h2 * (spec.cos_even * ce + spec.sin_even * se),
-                              dim=-1))                                  # = v2zz + floor
-    vz = w * torch.sqrt(v2f)
-    return vz, v2f - floor, valid
+    reconstruct = jam_grid_reconstruct if kernel else jam_grid_reconstruct_plain
+    vz, v2zz = reconstruct(spec, c1, c2, theta0, floor)
+    return vz, v2zz, valid

@@ -10,6 +10,7 @@ version.
 from .dispatch import use_kernel
 from .background_kernel import (BACKGROUND_LSE, background_logsumexp,
                                 background_logsumexp_reference)
+from .jam_grid_kernel import JAM_GRID_RECONSTRUCT, jam_grid_reconstruct
 from .jam_kernel import JAM_MOMENTS, jam_moments
 from .lnlike_kernels import (CONSTANT_GB, CONSTANT_MIXTURE, DOUBLE_MODEL,
                              DOUBLE_MODEL_GB, MODEL_FREECENTER, MODEL_LNLIKE,
@@ -37,7 +38,8 @@ from .probe_mixture import (CONSTANT_GB_V2, MODEL_GB_V2,
 from .sufficient import ConstantSufficientStats
 
 # every kernel's launch counter, in the order of the repository's TPU kernels,
-# then the port's own (the JAM engine, which replaces no TPU kernel)
+# then the port's own (the JAM engine and the JAM grid's star reconstruction,
+# which replace no TPU kernel)
 KERNELS = {"model_lnlike": MODEL_LNLIKE, "model_tensor": MODEL_TENSOR,
            "model_freecenter": MODEL_FREECENTER,
            "constant_mixture": CONSTANT_MIXTURE, "constant_gb": CONSTANT_GB,
@@ -47,12 +49,14 @@ KERNELS = {"model_lnlike": MODEL_LNLIKE, "model_tensor": MODEL_TENSOR,
            "background_lse": BACKGROUND_LSE,
            "model_sufficient_mma": MODEL_SUFFICIENT_MMA,
            "constant_gb_v2": CONSTANT_GB_V2, "model_gb_v2": MODEL_GB_V2,
-           "jam_moments": JAM_MOMENTS}
+           "jam_moments": JAM_MOMENTS,
+           "jam_grid_reconstruct": JAM_GRID_RECONSTRUCT}
 
 __all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE",
            "CONSTANT_GB", "MODEL_MIXTURE", "DOUBLE_MODEL", "DOUBLE_MODEL_GB",
            "MODEL_SUFFICIENT", "BACKGROUND_LSE", "MODEL_SUFFICIENT_MMA",
-           "CONSTANT_GB_V2", "MODEL_GB_V2", "JAM_MOMENTS", "KERNELS", "star_chunks",
+           "CONSTANT_GB_V2", "MODEL_GB_V2", "JAM_MOMENTS", "JAM_GRID_RECONSTRUCT", "KERNELS",
+           "star_chunks",
            "ModelTensorStats",
            "ModelSufficientStats", "ConstantSufficientStats",
            "model_lnlike_batched", "model_lnlike_reference",
@@ -67,4 +71,4 @@ __all__ = ["MODEL_LNLIKE", "MODEL_TENSOR", "MODEL_FREECENTER", "CONSTANT_MIXTURE
            "model_sufficient_lnlike_mma",
            "constant_gb_v2_lnlike_batched", "constant_gb_v2_lnlike_reference",
            "model_gb_v2_lnlike_batched", "model_gb_v2_lnlike_reference", "jam_moments",
-           "use_kernel"]
+           "jam_grid_reconstruct", "use_kernel"]

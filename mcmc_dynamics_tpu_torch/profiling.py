@@ -51,10 +51,13 @@ __all__ = ["SamplerTelemetry", "trace", "benchmark_lnprob", "span", "fit_span",
 # ``spans.dropped`` (the spans the latest tracing session did not keep, past
 # _MAX_SPANS), ``jam.engine_kernel`` and ``jam.engine_plain`` (the JAM
 # engine's calls that launched its kernel, and those that ran the plain
-# version) and ``jam.populations`` (the tracer populations those calls
-# evaluated: one a plain call, n_pops a kernel call)
+# version), ``jam.populations`` (the tracer populations those calls
+# evaluated: one a plain call, n_pops a kernel call), ``jam.recon_kernel`` and
+# ``jam.recon_plain`` (the JAM grid's star reconstructions that launched its
+# kernel, and those that ran the plain version)
 _COUNTERS = ("runner.fits", "tier.builds", "spans.dropped", "jam.engine_kernel",
-             "jam.engine_plain", "jam.populations")
+             "jam.engine_plain", "jam.populations", "jam.recon_kernel",
+             "jam.recon_plain")
 # the most spans one tracing session keeps
 _MAX_SPANS = 1 << 18
 

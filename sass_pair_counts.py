@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Per-pair instructions of the star loops of kernels 1, 3, 6, 8, 12 and
-13, and the inner loops of kernels 9, 10 and 11, read from SASS.
+13, and the inner loops of kernels 9, 10, 11 and 15, read from SASS.
 
 Run from the root of the repository, on a machine with the CUDA toolkit:
 
@@ -21,8 +21,11 @@ latter, for the bounds.  For ``model_sufficient_kernel``,
 ``background_lse_kernel`` and ``model_sufficient_mma_kernel`` it prints every
 innermost loop's instructions by op (kernel 9's loop over the Chebyshev
 order, kernel 10's max and sum sweeps, kernel 11's loop over a group's bins:
-its HGMMA, shuffles and the rest of a bin), and for each instantiation of
-kernel 11 its HGMMA, SHFL and local-memory (LDL, STL) instructions in all.
+its HGMMA, shuffles and the rest of a bin; kernel 15's loop over the staged
+chunks of radial orders), and for each instantiation of kernel 11 its HGMMA,
+SHFL and local-memory (LDL, STL) instructions in all, of kernel 15 its
+FFMAs, shared loads, local memory and any tensor-core or atomic instruction
+(HMMA, HGMMA, ATOM, RED: none is expected).
 """
 
 from __future__ import annotations
@@ -38,9 +41,12 @@ KERNELS = {"model_lnlike_kernel": ("RSQ", 2), "model_freecenter_kernel": ("RSQ",
            "constant_gb_v2_kernel": ("EX2", 1), "model_gb_v2_kernel": ("EX2", 1)}
 # kernels whose every innermost loop is listed by op
 LOOP_KERNELS = ("model_sufficient_kernel", "background_lse_kernel",
-                "model_sufficient_mma_kernel")
+                "model_sufficient_mma_kernel", "jam_grid_reconstruct_kernel")
 # kernels whose whole function's count of these ops is listed
-TOTAL_KERNELS = {"model_sufficient_mma_kernel": ("HGMMA", "SHFL", "LDL", "STL")}
+TOTAL_KERNELS = {"model_sufficient_mma_kernel": ("HGMMA", "SHFL", "LDL", "STL"),
+                 "jam_grid_reconstruct_kernel": ("FFMA", "LDS", "LDGSTS", "LDL", "STL",
+                                                 "HMMA", "HGMMA", "ATOM", "ATOMS",
+                                                 "ATOMG", "RED")}
 
 
 def _instructions(block):

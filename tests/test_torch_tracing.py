@@ -132,9 +132,10 @@ def test_counters_match_the_fit(tmp_path):
     fit(pos=pos, prefix=None, **RUN)
     diff = {k: v - before[k] for k, v in profiling.counters().items()}
     # two fit ids, one build (the second fit finds it cached), nothing
-    # dropped, no JAM engine call
+    # dropped, no JAM engine call or grid reconstruction
     assert diff == {"runner.fits": 2, "tier.builds": 1, "spans.dropped": 0,
-                    "jam.engine_kernel": 0, "jam.engine_plain": 0, "jam.populations": 0}
+                    "jam.engine_kernel": 0, "jam.engine_plain": 0, "jam.populations": 0,
+                    "jam.recon_kernel": 0, "jam.recon_plain": 0}
     assert profiling.counters()["runner.fits"] == before["runner.fits"] + 2
 
 
@@ -142,7 +143,7 @@ def test_mixture_span_under_the_chunks():
     """ChemoProfiles (the benchmark's 3-population configuration at a tiny
     size, the grid tier): one ``tier.mixture`` span a walker chunk, each
     under its ``tier.chunk``; one plain engine call and one population a
-    population a chunk."""
+    population a chunk, one plain grid reconstruction a chunk."""
     import pathlib
     import sys
 
@@ -170,6 +171,8 @@ def test_mixture_span_under_the_chunks():
     assert after["jam.engine_plain"] - before["jam.engine_plain"] == 3 * chunks
     assert after["jam.populations"] - before["jam.populations"] == 3 * chunks
     assert after["jam.engine_kernel"] == before["jam.engine_kernel"]
+    assert after["jam.recon_plain"] - before["jam.recon_plain"] == chunks
+    assert after["jam.recon_kernel"] == before["jam.recon_kernel"]
 
 
 @pytest.mark.parametrize("model", ["ModelFit", "ConstantFit"])
