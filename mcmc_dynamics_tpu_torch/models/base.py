@@ -210,47 +210,57 @@ class Runner:
         return data
 
     def build_lnprob_batched(self) -> Callable:
-        """Generic batched lnprob (W, K) -> (W,): expand, joint prior,
-        ``lnlike_fn``, in slices of ``lnprob_chunk`` walkers.  Plain torch: the
-        reference leaves this path to XLA."""
-        compiled = self.compiled
+        """Generic batched lnprob (W, K) -> (W,): ``lnlike_fn`` on the
+        walkers' columns, assembled by :meth:`_with_prior` in chunks of
+        ``lnprob_chunk`` walkers.  Plain torch: the reference leaves this
+        path to XLA."""
         data = self.prepare_data(dict(self._data_arrays))
-        extra = self._has_extra_lnprior()
+        return self._with_prior(lambda p: self.lnlike_fn(p, data),
+                                chunk=int(self.lnprob_chunk), columns=True)
 
-        def one(thetas):
-            with span("tier.chunk"):
-                lp = compiled.lnprior(thetas)
-                values = self.scaled_values(thetas)
-                if extra:
-                    lp = lp + self.extra_lnprior_fn(values)
-                p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
-                     for n, v in values.items()}
-                ll = self.lnlike_fn(p, data)
-                return torch.where(torch.isfinite(lp), lp + ll,
-                                   torch.full_like(lp, -math.inf))
+    def _with_prior(self, lnlike: Callable, chunk: Optional[int] = None,
+                    columns: bool = False) -> Callable:
+        """The log-posterior of a walker batch, as every batched tier
+        assembles it: ``thetas`` (W, K), or (..., K) with more leading axes
+        (the binned pipeline's buckets) -> lnprior, plus the model's joint
+        prior where it has one (on :meth:`scaled_values`'s (W,) values),
+        plus the likelihood; -inf wherever the prior is not finite or the
+        likelihood's range test fails.
 
-        def batched(thetas):
-            return torch.cat([one(t) for t in torch.split(thetas, self.lnprob_chunk)])
-
-        return batched
-
-    def _with_prior(self, lnlike: Callable) -> Callable:
-        """Batched lnprob = lnprior (+ the joint prior, where the model has
-        one) + ``lnlike(thetas)`` (in a ``tier.lnlike`` span), -inf wherever
-        the prior is (the likelihood tiers' common wrapper)."""
+        ``lnlike(thetas)``, or with ``columns`` ``lnlike(p)`` on the scaled
+        values as columns (:func:`walker_columns`), returns the
+        log-likelihood, or (log-likelihood, in-range mask) where a table
+        tier tests its range on the columns it scales for the likelihood.
+        With a ``chunk`` each chunk of that many walkers is assembled in a
+        ``tier.chunk`` span; without one the likelihood runs in a
+        ``tier.lnlike`` span."""
         lnprior = self.compiled.lnprior
         extra = self._has_extra_lnprior()
 
-        def batched(thetas):
-            lp = lnprior(thetas)
+        def assemble(thetas):
+            lead = thetas.shape[:-1] if thetas.dim() > 2 else None
+            flat = thetas if lead is None else thetas.reshape(-1, thetas.shape[-1])
+            lp = lnprior(flat)
+            values = self.scaled_values(flat) if columns or extra else None
             if extra:
-                lp = lp + self.extra_lnprior_fn(self.scaled_values(thetas))
-            with span("tier.lnlike"):
-                ll = lnlike(thetas)
-            return torch.where(torch.isfinite(lp), lp + ll,
-                               torch.full_like(lp, -math.inf))
+                lp = lp + self.extra_lnprior_fn(values)
+            if lead is not None:
+                lp = lp.reshape(lead)
+            with span("tier.lnlike") if chunk is None else contextlib.nullcontext():
+                ll = lnlike(walker_columns(values, lead) if columns else thetas)
+            ll, in_range = ll if isinstance(ll, tuple) else (ll, None)
+            return torch.where(torch.isfinite(lp) if in_range is None
+                               else torch.isfinite(lp) & in_range,
+                               lp + ll, torch.full_like(lp, -math.inf))
 
-        return batched
+        if chunk is None:
+            return assemble
+
+        def one(thetas):
+            with span("tier.chunk"):
+                return assemble(thetas)
+
+        return lambda thetas: walker_chunks(one, thetas, chunk)
 
     # ------------------------------------------------------------------ one walker
     def _one_walker(self, theta) -> torch.Tensor:
@@ -273,23 +283,11 @@ class Runner:
 
     def build_lnprob(self) -> Callable:
         """The pure log-posterior of one parameter vector: ``theta`` (K,) in
-        declared units -> a scalar: prior, joint prior and ``lnlike_fn``, -inf
-        where the prior is not finite (the reference's per-walker closure,
-        ``base.py:229-242``).  Plain torch on the model's device, not a
-        kernel tier."""
-        compiled = self.compiled
-        data = self.prepare_data(dict(self._data_arrays))
-
-        def lnprob(theta):
-            thetas = self._one_walker(theta)
-            lp = compiled.lnprior(thetas)
-            p = self.scaled_values(thetas)
-            lp = lp + self.extra_lnprior_fn(p)
-            ll = self.lnlike_fn(p, data)
-            return torch.where(torch.isfinite(lp), lp + ll,
-                               torch.full_like(lp, -math.inf))[0]
-
-        return lnprob
+        declared units -> a scalar (the reference's per-walker closure,
+        ``base.py:229-242``): the generic tier's assembly on a (1, K) batch.
+        Plain torch on the model's device, not a kernel tier."""
+        lnprob = Runner.build_lnprob_batched(self)
+        return lambda theta: lnprob(self._one_walker(theta))[0]
 
     def lnprob(self, theta) -> torch.Tensor:
         """Log-posterior of one parameter vector (:meth:`build_lnprob`)."""
@@ -1077,8 +1075,7 @@ class Runner:
                 "= true steps / thin).")
         rng = np.random.default_rng(seed)
         draws = self._to_device(flat[rng.integers(0, flat.shape[0], n_samples)])
-        p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
-             for n, v in self.scaled_values(draws).items()}
+        p = walker_columns(self.scaled_values(draws))
         shape = (n_samples, ra_rad.size)
         v, s = (torch.broadcast_to(field(p, pdata), shape).cpu().numpy()
                 for field in (self.rotation_field, self.dispersion_field))
@@ -1328,6 +1325,19 @@ class GaussianBackgroundMixin:
 
 def _sin(x):
     return torch.sin(x) if torch.is_tensor(x) else math.sin(x)
+
+
+def walker_columns(p, lead=None):
+    """Parameter values with every (W,) tensor as a column: (W, 1), or
+    ``lead + (1,)`` for a batch whose leading shape ``lead`` is not (W,)."""
+    return {n: ((v[:, None] if lead is None else v.reshape(lead + (1,)))
+                if torch.is_tensor(v) and v.dim() == 1 else v)
+            for n, v in p.items()}
+
+
+def walker_chunks(fn, thetas, chunk: int, *args):
+    """``fn(t, *args)`` on each chunk ``t`` of ``chunk`` walkers, concatenated."""
+    return torch.cat([fn(t, *args) for t in torch.split(thetas, chunk)])
 
 
 def masked_sum(terms, data):

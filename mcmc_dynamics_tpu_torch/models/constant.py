@@ -28,7 +28,6 @@ environment switch).
 from __future__ import annotations
 
 import logging
-import math
 import os
 
 import numpy as np
@@ -140,12 +139,8 @@ class ConstantFit(Runner):
             gx, gy, self._host_arrays["v"], self._host_arrays["verr"] ** 2,
             s_max=s_max, device=self.device, dtype=self.dtype)
 
-        def lnlike(thetas):
-            in_grid = thetas[:, 1] * thetas[:, 1] <= s_max
-            return torch.where(in_grid, stats.lnlike(thetas),
-                               torch.full_like(thetas[:, 0], -math.inf))
-
-        return self._with_prior(lnlike)
+        return self._with_prior(lambda thetas: (
+            stats.lnlike(thetas), thetas[:, 1] * thetas[:, 1] <= s_max))
 
     def build_lnprob_mixture(self):
         """Batched lnprob through kernel 4 or its plain version: the log

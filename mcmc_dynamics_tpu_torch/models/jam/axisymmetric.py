@@ -43,10 +43,9 @@ import torch
 
 from .moments import PC_PER_ARCSEC_PER_KPC, jam_los_moments
 from ..base import (Runner, _sin, gaussian_lnlike_terms, masked_sum,
-                    mixture_lnlike_terms)
+                    mixture_lnlike_terms, walker_chunks, walker_columns)
 from ... import units as u
 from ...ops.jam_kernel import jam_moments, jam_moments_plain
-from ...profiling import span
 from ...utils.coordinates import xy_offset_rad
 from ...utils.mge import MgeReader, stack_mge_grid
 from ...utils.morphology import find_barq_limits
@@ -59,12 +58,6 @@ __all__ = ["Axisymmetric"]
 _ARCSEC_PER_RAD = 180.0 * 3600.0 / math.pi
 # the grid tier's per-star bases, sharded with the catalog on a star axis
 _GRID_STAR_COLUMNS = ("t_star", "cos_even", "sin_even", "cos_odd", "sin_odd")
-
-
-def walker_columns(p):
-    """Parameter values with every (W,) tensor as a (W, 1) column."""
-    return {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
-            for n, v in p.items()}
 
 
 def _atan2(y, x):
@@ -362,10 +355,7 @@ class Axisymmetric(Runner):
             return masked_sum(self._grid_lnlike_terms(lspec, p, local, floor, kernel),
                               local)
 
-        def fn(thetas, local):
-            return torch.cat([one(t, local) for t in torch.split(thetas, chunk)])
-
-        return fn
+        return lambda thetas, local: walker_chunks(one, thetas, chunk, local)
 
     def program_cache_salt(self) -> tuple:
         """The MGE tables, the quadrature orders, the chunks and the tier
@@ -402,35 +392,16 @@ class Axisymmetric(Runner):
     def _build_jam_lnprob(self, spec, kernel=False):
         """The batched lnprob on the grid tier of ``spec``, or on the direct
         tier for None; on the kernel engine with ``kernel``."""
-        compiled = self.compiled
         data = self.prepare_data(dict(self._data_arrays))
-        extra = self._has_extra_lnprior()
         if spec is None:
-            chunk = int(self.lnprob_chunk)
-
-            def terms(p):
-                return self.lnlike_terms(p, data, kernel)
-        else:
-            chunk = int(self.jam_grid_chunk)
-            floor = self._grid_floor()
-
-            def terms(p):
-                return self._grid_lnlike_terms(spec, p, data, floor, kernel)
-
-        def one(thetas):
-            with span("tier.chunk"):
-                lp = compiled.lnprior(thetas)
-                p = walker_columns(self.scaled_values(thetas))
-                if extra:
-                    lp = lp + self.extra_lnprior_fn(p)
-                ll = masked_sum(terms(p), data)
-                return torch.where(torch.isfinite(lp), lp + ll,
-                                   torch.full_like(lp, -math.inf))
-
-        def batched(thetas):
-            return torch.cat([one(t) for t in torch.split(thetas, chunk)])
-
-        return batched
+            return self._with_prior(
+                lambda p: masked_sum(self.lnlike_terms(p, data, kernel), data),
+                chunk=int(self.lnprob_chunk), columns=True)
+        floor = self._grid_floor()
+        return self._with_prior(
+            lambda p: masked_sum(self._grid_lnlike_terms(spec, p, data, floor, kernel),
+                                 data),
+            chunk=int(self.jam_grid_chunk), columns=True)
 
     # ------------------------------------------------------------------ posterior
     def _posterior_draws(self, chain, n_burn: int, n_samples: int, seed: int):

@@ -36,9 +36,9 @@ from string import ascii_lowercase
 import numpy as np
 import torch
 
-from .axisymmetric import _ARCSEC_PER_RAD, walker_columns
+from .axisymmetric import _ARCSEC_PER_RAD
 from .radial_profiles import AnalyticalProfiles
-from ..base import gaussian_lnlike_terms
+from ..base import gaussian_lnlike_terms, walker_columns
 from ...ops.jam_kernel import jam_moments, jam_moments_plain
 from ...parameters import Parameters
 from ...profiling import span

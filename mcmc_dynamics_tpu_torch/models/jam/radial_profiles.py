@@ -21,7 +21,8 @@ import math
 import numpy as np
 import torch
 
-from .axisymmetric import Axisymmetric, walker_columns
+from .axisymmetric import Axisymmetric
+from ..base import walker_columns
 
 logger = logging.getLogger(__name__)
 

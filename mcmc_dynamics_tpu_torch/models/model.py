@@ -37,7 +37,6 @@ torch version beside the kernel.  The tier's name stays the same.
 from __future__ import annotations
 
 import logging
-import math
 import os
 
 import numpy as np
@@ -52,7 +51,6 @@ from ..ops.lnlike_kernels import (model_freecenter_lnlike_batched,
                                   model_mixture_lnlike_reference)
 from ..ops.model_sufficient import ModelSufficientStats, model_sufficient_lnlike
 from ..ops.model_tensor import ModelTensorStats, model_tensor_lnlike
-from ..profiling import span
 from ..utils.coordinates import xy_offset_rad
 from .base import (GaussianBackgroundMixin, Runner, density_membership,
                    density_mixture_terms, gaussian_lnlike_terms,
@@ -315,18 +313,14 @@ class ModelFit(Runner):
         r_peak) table box get -inf; the box is the prior box."""
         stats = self.tensor_stats()
         col_scale = self._internal_col_scale()
-        lnprior = self.compiled.lnprior
         kernel = self._kernel_tier("tensor")
 
-        def batched(thetas):
-            lp = lnprior(thetas)
-            with span("tier.lnlike"):
-                ti = thetas * col_scale
-                ok = torch.isfinite(lp) & stats.in_box(ti)
-                ll = model_tensor_lnlike(stats, ti) if kernel else stats.lnlike(ti)
-            return torch.where(ok, lp + ll, torch.full_like(lp, -math.inf))
+        def lnlike(thetas):
+            ti = thetas * col_scale
+            ll = model_tensor_lnlike(stats, ti) if kernel else stats.lnlike(ti)
+            return ll, stats.in_box(ti)
 
-        return batched
+        return self._with_prior(lnlike)
 
     def sufficient_stats(self) -> ModelSufficientStats:
         """The binned tier's tables for this catalog, built on the host in
@@ -350,16 +344,10 @@ class ModelFit(Runner):
 
         def lnlike(thetas):
             ti = thetas * col_scale
-            return model_sufficient_lnlike(stats, ti) if kernel else stats.lnlike(ti)
+            ll = model_sufficient_lnlike(stats, ti) if kernel else stats.lnlike(ti)
+            return ll, thetas[:, 1] * thetas[:, 1] <= stats.s_max
 
-        lnprob = self._with_prior(lnlike)
-
-        def batched(thetas):
-            in_grid = thetas[:, 1] * thetas[:, 1] <= stats.s_max
-            return torch.where(in_grid, lnprob(thetas),
-                               torch.full_like(thetas[:, 0], -math.inf))
-
-        return batched
+        return self._with_prior(lnlike)
 
     # ------------------------------------------------------------------ post-processing
     def rotation_profile(self, flat, radii):

@@ -30,6 +30,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..models.base import walker_chunks, walker_columns
 from ..sampler.stretch import draw_step, half_update, normalize_move
 from .mesh import Mesh
 
@@ -81,22 +82,15 @@ def _star_slice(runner, mesh: Mesh, sp_axis: str) -> Dict[str, torch.Tensor]:
 
 
 def generic_partial(runner) -> Callable:
-    """``fn(thetas, local) -> (W,)``: the masked sum of the model's per-star
-    terms over the slice ``local``, in walker chunks of ``lnprob_chunk``
-    (the star-sharded fallback where the model has no fused partial)."""
+    """``fn(thetas, local) -> (W,)``: the model's ``lnlike_fn``, the masked
+    sum of its per-star terms, over the slice ``local``, in walker chunks of
+    ``lnprob_chunk`` (the star-sharded fallback where the model has no fused
+    partial)."""
 
     def one(thetas, local):
-        values = runner.scaled_values(thetas)
-        p = {n: (v[:, None] if torch.is_tensor(v) and v.dim() == 1 else v)
-             for n, v in values.items()}
-        terms = runner.lnlike_terms(p, local)
-        # select, not multiply: a -inf term on a padded lane x 0 is NaN
-        return torch.where(local["mask"] > 0, terms, torch.zeros_like(terms)).sum(-1)
+        return runner.lnlike_fn(walker_columns(runner.scaled_values(thetas)), local)
 
-    def fn(thetas, local):
-        return torch.cat([one(t, local) for t in torch.split(thetas, runner.lnprob_chunk)])
-
-    return fn
+    return lambda thetas, local: walker_chunks(one, thetas, runner.lnprob_chunk, local)
 
 
 def _star_sharded_batched(runner, mesh: Mesh, sp_axis: str, partial) -> Callable:

@@ -26,7 +26,6 @@ sampler's leading batch axis, (bins, walkers, params).
 from __future__ import annotations
 
 import logging
-import math
 from typing import Dict, Type
 
 import numpy as np
@@ -150,40 +149,17 @@ def _sufficient_lnprob(template, stacked, n_coef, s_max, device, dtype):
     tables = ConstantSufficientBins.build(
         stacked["gx"], stacked["gy"], stacked["v"], stacked["verr"] ** 2,
         stacked["mask"], n_coef=n_coef, s_max=s_max, device=device, dtype=dtype)
-    lnprior = template.compiled.lnprior
-
-    def fn(thetas):
-        lp = lnprior(thetas.reshape(-1, thetas.shape[-1])).reshape(thetas.shape[:-1])
-        ok = torch.isfinite(lp) & (thetas[..., 1] * thetas[..., 1] <= s_max)
-        return torch.where(ok, lp + tables.lnlike(thetas),
-                           torch.full_like(lp, -math.inf))
-
-    return fn
+    return template._with_prior(lambda thetas: (
+        tables.lnlike(thetas), thetas[..., 1] * thetas[..., 1] <= s_max))
 
 
 def _generic_lnprob(template, stacked, device, dtype):
     """Batched lnprob (B_k, W', K) -> (B_k, W') of one bucket through the
-    model's ``lnlike_terms``: data columns (B_k, 1, N_max) against parameter
+    model's ``lnlike_fn``: data columns (B_k, 1, N_max) against parameter
     columns (B_k, W', 1), the padded lanes masked out of the sum."""
     data = {name: torch.as_tensor(arr, dtype=dtype, device=device)[:, None, :]
             for name, arr in stacked.items()}
-    compiled = template.compiled
-
-    def fn(thetas):
-        lead = thetas.shape[:-1]
-        flat = thetas.reshape(-1, thetas.shape[-1])
-        lp = compiled.lnprior(flat)
-        values = template.scaled_values(flat)
-        lp = lp + template.extra_lnprior_fn(values)
-        p = {n: (v.reshape(lead + (1,)) if torch.is_tensor(v) and v.dim() == 1
-                 else v) for n, v in values.items()}
-        terms = template.lnlike_terms(p, data)
-        ll = torch.where(data["mask"] > 0, terms, torch.zeros_like(terms)).sum(-1)
-        lp = lp.reshape(lead)
-        return torch.where(torch.isfinite(lp), lp + ll,
-                           torch.full_like(lp, -math.inf))
-
-    return fn
+    return template._with_prior(lambda p: template.lnlike_fn(p, data), columns=True)
 
 
 def _bucketed(parts, n_bins):
